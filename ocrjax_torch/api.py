@@ -1,10 +1,11 @@
-"""Public API of the port: OcrEngine and its result types (port of the
-fused-lane part of ocrjax/api.py).
+"""Public API of the port: OcrEngine and its result types (port of
+ocrjax/api.py): recognize / recognize_strips, detect, ocr and ocr_batch on
+the fused, staged and bucketed lanes, greedy CTC.
 
 The engine runs on the card unless the caller asks for the CPU: the default
-device is "cuda", and constructing it without CUDA raises. Lanes and
-opt-in paths that later slices port raise NotImplementedError instead of
-answering differently from the reference.
+device is "cuda", and constructing it without CUDA raises. Options that
+later slices port (beam CTC, rec_try_flip, det_int8, rec_dewarp_curl) raise
+NotImplementedError instead of answering differently from the reference.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ class OcrLine:
 @dataclasses.dataclass
 class OcrResult:
     lines: List[OcrLine]
-    # True when the page saturated the fused lane's line capacity (the
-    # reference then redoes it on the staged lane; the port raises)
+    # True when the page saturated the fused lane's line capacity
+    # (ocr_pages_fused then redoes it on the bucketed lane)
     truncated: bool = False
 
     @property
@@ -147,6 +148,7 @@ class OcrEngine:
             create_cls(cfg), cls_weights and W.cls_state_dict(cls_weights)[0],
             seed + 2, self.device)
         self._fused_cache = {}
+        self._det = None   # api_det.DetState, built by the staged lanes
 
     @classmethod
     def from_pretrained(cls, path: str = None, config: OcrConfig = None,
@@ -169,33 +171,75 @@ class OcrEngine:
                    rec_weights=loaded["rec"][0], det_weights=loaded["det"][0],
                    cls_weights=loaded["cls"][0], device=device, seed=seed)
 
-    def ocr(self, image: ImageLike, beam: bool = False) -> OcrResult:
-        """One page -> ordered text lines, through the fused lane."""
-        cfg = self.config
+    @staticmethod
+    def _refuse_beam(beam: bool) -> None:
         if beam:
             raise NotImplementedError("beam CTC is not ported yet "
                                       "(ROADMAP.md: beam CTC)")
-        if not cfg.ocr_single_fused:
-            raise NotImplementedError("the staged lane is not ported yet "
-                                      "(ROADMAP.md: staged/bucketed lanes)")
-        img = preprocess.load_image(image, auto_invert=cfg.auto_invert)
-        if max(img.shape[:2]) > cfg.det_max_side:
-            raise NotImplementedError(
-                "pages larger than det_max_side take the staged lane "
-                "(full-resolution crops), not ported yet (ROADMAP.md: "
-                "staged/bucketed lanes)")
-        from ocrjax_torch import fused
-        return fused.ocr_pages_fused(self, [img])[0]
+
+    def _rec_step(self, batch_u8: torch.Tensor, widths: torch.Tensor):
+        """normalize -> CRNN -> greedy CTC over a (N, H, W) uint8 batch."""
+        from ocrjax_torch.api_det import rec_strips
+        cfg = self.config
+        with torch.inference_mode():
+            x = preprocess.rec_normalize(batch_u8, cfg.rec_mean, cfg.rec_std)
+        return rec_strips(self, x[:, 0], widths)
+
+    def recognize_strips(self, strips: Sequence[np.ndarray],
+                         beam: bool = False) -> List[RecResult]:
+        """Batched recognition of pre-cropped uint8 line strips of any
+        size: resized to the rec height on the host, zero-padded to one
+        width bucket and the count bucket, one device call. (The
+        reference's same_page / prior_ids arguments group strips for the
+        orientation stage, which is not ported yet.)"""
+        self._refuse_beam(beam)
+        if len(strips) == 0:
+            return []
+        cfg = self.config
+        resized = [preprocess.rec_resize(
+            preprocess.to_gray(np.asarray(s)), cfg.rec_height)
+            for s in strips]
+        n = len(resized)
+        batch, widths = preprocess.pad_strips_to_bucket(resized, cfg)
+        nb = cfg.line_bucket_for_count(n)
+        if nb > n:  # pad the batch axis to the count bucket
+            batch = np.concatenate(
+                [batch, np.zeros((nb - n,) + batch.shape[1:], batch.dtype)])
+            widths = np.concatenate(
+                [widths, np.full((nb - n,), batch.shape[2], np.int32)])
+        from ocrjax_torch.api_det import upload
+        tokens, n_tokens, conf = (t.cpu().numpy() for t in self._rec_step(
+            upload(self, batch), upload(self, widths)))
+        return [RecResult(self.charset.decode(tokens[i][: n_tokens[i]]),
+                          float(conf[i])) for i in range(n)]
+
+    def recognize(self, image: ImageLike, beam: bool = False) -> RecResult:
+        """One pre-cropped text-line image -> one string."""
+        img = preprocess.load_image(image,
+                                    auto_invert=self.config.auto_invert)
+        return self.recognize_strips([img], beam=beam)[0]
+
+    def detect(self, image: ImageLike) -> List[DetBox]:
+        """Full page -> boxes in original image coords, reading order."""
+        from ocrjax_torch import api_det
+        return api_det.detect(self, image)
+
+    def ocr(self, image: ImageLike, beam: bool = False) -> OcrResult:
+        """One page -> ordered text lines: the fused lane for a page that
+        fits the canvas (cfg.ocr_single_fused), else the staged lane with
+        full-resolution crops."""
+        self._refuse_beam(beam)
+        from ocrjax_torch import api_det
+        return api_det.ocr(self, image)
 
     def ocr_batch(self, images: Sequence[ImageLike], beam: bool = False,
                   fused: bool = False) -> List[OcrResult]:
-        """Batched page OCR; only the fused lane (fused=True) is ported."""
-        if beam:
-            raise NotImplementedError("beam CTC is not ported yet "
-                                      "(ROADMAP.md: beam CTC)")
-        if not fused:
-            raise NotImplementedError(
-                "ocr_batch(fused=False) is the bucketed lane, not ported "
-                "yet (ROADMAP.md: staged/bucketed lanes)")
-        from ocrjax_torch import fused as F
-        return F.ocr_pages_fused(self, images)
+        """Batched page OCR: fused=True runs the fused lane (fixed line
+        capacity per page, reroutes inside), else the pooled bucketed
+        lane."""
+        self._refuse_beam(beam)
+        if fused:
+            from ocrjax_torch import fused as F
+            return F.ocr_pages_fused(self, images)
+        from ocrjax_torch import api_det
+        return api_det.ocr_batch(self, images)

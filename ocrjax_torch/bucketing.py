@@ -1,0 +1,235 @@
+"""Width/count bucketing and the pooled batched end-to-end lane (port of
+ocrjax/bucketing.py).
+
+A batch of pages gives hundreds of line crops of very different widths.
+They are pooled ACROSS pages and routed into (line-count, strip-width)
+buckets, so padding stays small and every dispatch has one of a few
+shapes; strip widths become CTC frame lengths, which keeps padded columns
+out of the decoded strings.
+
+Pipeline (ocr_pages):
+  1. chunked batched DB forward and box extraction over all canvases;
+  2. host: the valid quads of all pages, estimated strip widths, width
+     buckets;
+  3. per (width bucket, warp kind, count chunk): pooled warp with ink
+     refinement, CRNN, greedy CTC;
+  4. the decoded lines back to their pages, in reading order.
+
+The 90-degree (landscape) redo and the orientation phases of the reference
+belong to the orientation slice (the engine refuses rec_try_flip).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ocrjax_torch import geometry, preprocess
+from ocrjax_torch.ops import warp as warp_lib
+from ocrjax_torch.utils.profiling import stage
+
+
+def assign_width_buckets(est_widths: np.ndarray, buckets: Sequence[int]
+                         ) -> Dict[int, np.ndarray]:
+    """Group indices by the smallest bucket >= estimated width."""
+    out: Dict[int, List[int]] = {}
+    arr = np.asarray(buckets)
+    for i, w in enumerate(est_widths):
+        b = int(arr[np.searchsorted(arr, min(w, arr[-1]))])
+        out.setdefault(b, []).append(i)
+    return {k: np.asarray(v, np.int64) for k, v in out.items()}
+
+
+def pad_count(n: int, cfg) -> int:
+    return cfg.line_bucket_for_count(n)
+
+
+def sep_warp_mask(quads: np.ndarray, warp_src: np.ndarray, cfg,
+                  page_h: int | None = None) -> np.ndarray:
+    """Which pooled quads may take the separable warp (cfg.pooled_sep_warp):
+    tilt within max(fused_rotation_reroute_deg, atan(noise_px / long side))
+    (below that the measured tilt is prob-map noise and an AABB crop equals
+    the homography crop after ink refinement) and an expanded AABB that
+    fits the warp's row tile. Tilted, near-vertical and tall quads keep the
+    exact homography warp."""
+    q = np.asarray(quads, np.float32)
+    tilt = geometry.quad_tilt_deg(q)
+    w_len = np.linalg.norm(q[:, 1] - q[:, 0], axis=1)
+    h_len = np.linalg.norm(q[:, 3] - q[:, 0], axis=1)
+    long_side = np.maximum(np.maximum(w_len, h_len), 1.0)
+    thresh = np.maximum(
+        cfg.fused_rotation_reroute_deg,
+        np.degrees(np.arctan2(cfg.fused_reroute_noise_px, long_side)))
+    ws = np.asarray(warp_src, np.float32)
+    aabb_h = ws[..., 1].max(axis=-1) - ws[..., 1].min(axis=-1)
+    tile_h = cfg.pooled_sep_tile_h
+    if page_h is not None:  # the warp clamps its row tile to the page
+        tile_h = min(tile_h, int(page_h))
+    return (tilt <= thresh) & (aabb_h <= tile_h - 4)
+
+
+@torch.inference_mode()
+def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
+                     quads: np.ndarray, b_all: np.ndarray):
+    """Pooled width-bucketed recognition over normalized device pages.
+
+    gray_dev: (P, S, S) float32 normalized pages on the device; page_ids
+    (N,) row of gray_dev per quad; quads (N, 4, 2) float32 tight detector
+    boxes in page coords; b_all (N, 1, 2) per-quad valid (max_x, max_y).
+    Returns (texts, confs) aligned with quads. One dispatch per (width
+    bucket, warp kind, count chunk): near-axis-aligned quads take the
+    separable warp, tilted or tall ones the homography warp, and a bucket
+    holding more quads than the largest count bucket is split. Every
+    dispatch is issued before any result is copied to the host. (The
+    reference pads the page axis to a power of two to bound its compiled
+    programs; eager PyTorch needs no such padding.)"""
+    from ocrjax_torch.api_det import (_estimate_strip_widths, rec_strips,
+                                      upload)
+
+    cfg = engine.config
+    warp_src = quads
+    # width estimate from the TIGHT quads, with headroom: the ink
+    # refinement rescales the band to full strip height
+    est_w = _estimate_strip_widths(quads, cfg.rec_height)
+    if cfg.rec_snap_to_ink:
+        est_w = est_w * 1.25
+    if cfg.rec_snap_to_ink and cfg.rec_crop_margin > 0:
+        warp_src = warp_lib.expand_quads_host(
+            quads, cfg.rec_crop_margin, cfg.rec_crop_margin, bounds=b_all)
+
+    cap = cfg.line_batch_buckets[-1]
+    sep_ok = (sep_warp_mask(quads, warp_src, cfg,
+                            page_h=int(gray_dev.shape[1]))
+              if cfg.pooled_sep_warp else np.zeros(len(quads), bool))
+    chunks = []
+    for bucket_w, idx_all in assign_width_buckets(
+            est_w, cfg.rec_width_buckets).items():
+        for sep in (True, False):
+            gidx = idx_all[sep_ok[idx_all] == sep]
+            for lo in range(0, len(gidx), cap):
+                chunks.append((bucket_w, gidx[lo:lo + cap], sep))
+
+    pad_v = (0.0 - cfg.rec_mean) / cfg.rec_std
+    pending = []
+    for bucket_w, idx, sep in chunks:
+        n = len(idx)
+        # pad rows repeat the last quad; they never reach the result
+        sel = np.concatenate([idx, np.repeat(idx[-1:], pad_count(n, cfg) - n)])
+        ids = upload(engine, page_ids[sel].astype(np.int64))
+        ws = upload(engine, warp_src[sel].astype(np.float32))
+        kw = dict(rec_height=cfg.rec_height, bucket_width=bucket_w,
+                  pad_value=pad_v)
+        if sep:
+            kw["tile_h"] = cfg.pooled_sep_tile_h
+        with stage("warp_refine"):
+            if cfg.rec_snap_to_ink:
+                refined_warp = (warp_lib.warp_quads_multi_sep_refined if sep
+                                else warp_lib.warp_quads_multi_refined)
+                strips, widths = refined_warp(
+                    gray_dev, ids, ws, upload(engine, b_all[sel]),
+                    ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
+                    margin_fracs=(cfg.rec_crop_margin, cfg.rec_crop_margin),
+                    x_margin_keep=cfg.rec_ink_x_margin_keep,
+                    orig_quads=upload(engine, quads[sel].astype(np.float32)),
+                    flat_frac=cfg.rec_flat_band_frac,
+                    case_gate=cfg.rec_flat_case_gate, **kw)
+            elif sep:
+                strips, widths = warp_lib.warp_quads_multi_separable(
+                    gray_dev, ids, ws, **kw)
+            else:
+                strips, widths = warp_lib.warp_quads_multi(
+                    gray_dev, ids, ws, **kw)
+        pending.append((idx, rec_strips(engine, strips, widths)))
+
+    texts = [None] * len(quads)
+    confs = [0.0] * len(quads)
+    for idx, out in pending:
+        tokens, n_tokens, conf = (t.cpu().numpy() for t in out)
+        for k, qi in enumerate(idx):
+            texts[qi] = engine.charset.decode(tokens[k][: n_tokens[k]])
+            confs[qi] = float(conf[k])
+    return texts, confs
+
+
+def ocr_pages(engine, images: Sequence) -> List["OcrResult"]:
+    """Pooled batched OCR: one OcrResult per input image.
+
+    Detection is chunked and every chunk is dispatched before any candidate
+    is read; the uploaded canvases stay on the device and the pooled warp
+    reuses them. Pages that were downscaled onto the canvas keep the batch's
+    detections but are recognized from full-resolution crops of the original
+    (api_det.pooled_fullres_from_boxes), so a batch never reads a page worse
+    than the single-page lane does."""
+    from ocrjax_torch.api import DetBox, OcrLine, OcrResult
+    from ocrjax_torch.api_det import (det_state, fetch_det, gray_norm,
+                                      pooled_fullres_from_boxes, upload)
+
+    cfg = engine.config
+    B = len(images)
+    if B == 0:
+        return []
+    st = det_state(engine)
+    C = max(1, min(cfg.fused_chunk_pages, B))
+    scales = np.ones((B,), np.float64)
+    valid_hw = np.zeros((B, 2), np.int64)
+    ok = np.ones((B,), bool)
+    originals: Dict[int, np.ndarray] = {}
+    chunk_devs, cands = [], []
+    for lo in range(0, B, C):
+        hi = min(lo + C, B)
+        grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], _ = \
+            preprocess.decode_chunk_to_gray(images, range(lo, hi), cfg,
+                                            originals_out=originals)
+        dev = upload(engine, preprocess.pack_for_upload(grays, cfg))
+        chunk_devs.append(dev)
+        cands.append(st.forward(dev)[1])
+    boxes, scores, valid = fetch_det(cands)
+    for i in range(B):
+        nh, nw = valid_hw[i]
+        cx = boxes[i, :, :, 0].mean(axis=1)
+        cy = boxes[i, :, :, 1].mean(axis=1)
+        valid[i] &= ok[i] & (cx < nw) & (cy < nh)
+
+    # full-resolution lane for downscaled pages
+    down_items = []
+    for i in range(B):
+        if ok[i] and scales[i] < 0.999 and valid[i].any():
+            down_items.append((i, originals[i], scales[i], boxes[i],
+                               scores[i], np.where(valid[i])[0]))
+            valid[i] = False
+
+    page_ids, quads, qscores, slots = [], [], [], []
+    for i in range(B):
+        for j in np.where(valid[i])[0]:
+            slots.append((i, len(quads)))
+            page_ids.append(i)
+            quads.append(boxes[i, j])
+            qscores.append(scores[i, j])
+    results: List[List[OcrLine]] = [[] for _ in range(B)]
+
+    if quads:
+        page_ids = np.asarray(page_ids, np.int32)
+        quads = np.asarray(quads, np.float32)
+        # per-quad bounds: that page's valid region (never canvas padding)
+        b_all = (valid_hw[page_ids][:, ::-1].astype(np.float32)
+                 - 1.0)[:, None, :]
+        with torch.inference_mode(), stage("warp_refine"):
+            normed = [gray_norm(engine, d) for d in chunk_devs]
+            gray_dev = torch.cat(normed) if len(normed) > 1 else normed[0]
+        texts, confs = recognize_pooled(engine, gray_dev, page_ids, quads,
+                                        b_all)
+        for i in range(B):
+            mine = [s for (p, s) in slots if p == i]
+            if not mine:
+                continue
+            page_quads = [geometry.scale_quads(quads[s], scales[i])
+                          for s in mine]
+            results[i] = [
+                OcrLine(box=DetBox(page_quads[k], float(qscores[mine[k]])),
+                        text=texts[mine[k]], confidence=confs[mine[k]])
+                for k in geometry.sort_reading_order(page_quads)]
+    for i, res in pooled_fullres_from_boxes(engine, down_items):
+        results[i] = res.lines
+    return [OcrResult(lines=r) for r in results]

@@ -4,11 +4,11 @@ of pages at a time (port of ocrjax/fused.py).
 
 The reference compiles this as one XLA program and packs its outputs into
 one byte row for a slow host link; here `FusedOcr` is a plain function over
-device tensors that returns them as tensors. Pages the reference would
-redo on another lane (rotation reroute, colour reroute, saturated line
-capacity, downscaled-page redo) need the staged and bucketed lanes of a
-later slice: ocr_pages_fused raises NotImplementedError for such a page
-rather than return a result that differs from the reference.
+device tensors that returns them as tensors. ocr_pages_fused redoes, as the
+reference does, the pages this lane cannot answer: a colour page on the
+staged lane over min-channel luma, tilted pages and pages that saturate the
+line capacity on the bucketed lane, and downscaled ones of those on the
+full-resolution lane.
 """
 
 from __future__ import annotations
@@ -23,10 +23,6 @@ from ocrjax_torch.ops import ctc
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.profiling import stage
-
-_LATER = ("needs the staged/bucketed lanes, not ported yet "
-          "(ROADMAP.md, next slices, item 1)")
-
 
 def top_k(score: torch.Tensor, k: int):
     """(values, indices) of the k largest along the last dim; ties go to
@@ -80,8 +76,8 @@ class FusedOcr:
                 cand["boxes"], 1, top_i[..., None, None].expand(-1, -1, 4, 2))
             line_valid = top_s > 0.0
         with stage("warp_refine"):
-            gray = (gray_u8.float() * (1.0 / 255.0) - cfg.rec_mean) \
-                * (1.0 / cfg.rec_std)
+            gray = preprocess.gray_normalize(gray_u8, cfg.rec_mean,
+                                             cfg.rec_std)
             pad_v = (0.0 - cfg.rec_mean) / cfg.rec_std
             bounds = (valid_wh - 1.0)[:, None, None, :]       # (B, 1, 1, 2)
             warp_src = quads
@@ -165,6 +161,7 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
                     bucket_width: int = None) -> List["OcrResult"]:
     """Batched page OCR through the fused lane: per-page OcrResult in
     reading order, original image coords."""
+    from ocrjax_torch import api_det, bucketing
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
 
     cfg = engine.config
@@ -176,18 +173,12 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     fused = _fused_for(engine, K, W)
     thr = (float(cfg.det_thresh), float(cfg.det_box_thresh),
            float(cfg.det_unclip_ratio), float(cfg.det_min_box_size))
-    dev = engine.device
-
-    def upload(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if dev.type == "cuda":
-            return t.pin_memory().to(dev, non_blocking=True)
-        return t
 
     def run(packed: np.ndarray, wh: np.ndarray, depth: int = 0):
         """Dispatch one chunk; on device OOM halve it (up to 3 times)."""
         try:
-            return fused(upload(packed), thr, upload(wh))
+            return fused(api_det.upload(engine, packed), thr,
+                         api_det.upload(engine, wh))
         except torch.cuda.OutOfMemoryError:
             if depth >= 3 or len(packed) <= 1:
                 raise
@@ -201,6 +192,7 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     scales = np.ones((B,), np.float64)
     valid_hw = np.zeros((B, 2), np.int64)
     ok = np.ones((B,), bool)
+    colorful = set()
     pending = []
     # every chunk is dispatched before any result is read: the host decode
     # of chunk k+1 overlaps the device work of chunk k
@@ -210,20 +202,22 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
             preprocess.decode_chunk_to_gray(
                 images, range(lo, hi), cfg,
                 color_frac=cfg.fused_color_reroute_frac)
-        for j, c in enumerate(col):
-            if c and ok[lo + j]:
-                raise NotImplementedError(
-                    f"page {lo + j}: colour-content reroute (min-channel "
-                    f"luma) {_LATER}")
+        colorful.update(lo + j for j, c in enumerate(col) if c)
         wh = valid_hw[lo:hi, ::-1].astype(np.float32).copy()
         pending.append(run(preprocess.pack_for_upload(grays, cfg), wh))
     chunks = [_to_host(o) for o in pending]
     out = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
 
     results: List[OcrResult] = []
+    reroute: List[int] = []
     for i in range(B):
         if not ok[i]:
             results.append(OcrResult(lines=[]))
+            continue
+        if i in colorful:
+            # colour reroute: 601 luma can wash saturated ink out, so the
+            # page runs the staged lane over min-channel luma
+            results.append(api_det.ocr(engine, images[i], color=True))
             continue
         nh, nw = valid_hw[i]
         valid = out["valid"][i]
@@ -232,15 +226,11 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
         if len(vq):
             ctr = vq.mean(axis=1)
             vq = vq[(ctr[:, 0] < nw) & (ctr[:, 1] < nh)]
-        down = " of a downscaled page" if scales[i] < 0.999 else ""
         if (cfg.fused_rotation_reroute_deg > 0 and len(vq)
                 and should_reroute_rotation(vq, cfg)):
-            raise NotImplementedError(
-                f"page {i}: rotation reroute{down} {_LATER}")
-        if valid.sum() >= K:
-            raise NotImplementedError(
-                f"page {i}: saturated line capacity (K={K}) redo{down} "
-                f"{_LATER}")
+            reroute.append(i)
+            results.append(None)   # filled by the redo below
+            continue
         qs, metas = [], []
         for k in np.where(valid)[0]:
             q = quads[k]
@@ -256,5 +246,25 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
             lines.append(OcrLine(
                 box=DetBox(qs[j], float(out["scores"][i, k])),
                 text=text, confidence=float(out["conf"][i, k])))
-        results.append(OcrResult(lines=lines, truncated=False))
+        # all K slots valid (before the artifact filter): the page may hold
+        # more lines than the fused capacity
+        results.append(OcrResult(lines=lines,
+                                 truncated=bool(valid.sum() >= K)))
+
+    # tilted and saturated pages are redone as ONE pooled batch on the
+    # bucketed lane (exact homography crops, unbounded line count);
+    # downscaled ones pool on the full-resolution lane instead, which
+    # recognizes from crops of the original image
+    redo = [i for i in range(B)
+            if results[i] is not None and results[i].truncated and ok[i]]
+    if reroute or redo:
+        pooled = [i for i in reroute + redo if scales[i] >= 0.999]
+        for i, res in zip(pooled, bucketing.ocr_pages(
+                engine, [images[i] for i in pooled])):
+            results[i] = res
+        down = [i for i in reroute + redo if scales[i] < 0.999]
+        if down:
+            for i, res in zip(down, api_det.ocr_fullres_batch(
+                    engine, [images[i] for i in down])):
+                results[i] = res
     return results

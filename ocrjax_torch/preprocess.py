@@ -5,16 +5,20 @@ square detection canvas with replicate padding, and the 4-bit Bayer dither
 packed two pixels a byte. Device (torch): the unpack and the detector's
 normalization.
 
-Differences from the reference's host path, which can use cv2 and a native
-C++ decoder:
+The reference's host path uses cv2 and a native C++ decoder; a machine with
+a card may have neither, so the port computes their arithmetic itself, bit
+for bit:
   * `to_gray` is cv2's fixed-point 601 luma, (9798 R + 19235 G + 3735 B +
-    16384) >> 15, bit-exact;
-  * a page larger than the canvas is downscaled by `resize_bilinear`
-    (half-pixel centres, float weights), which may differ from cv2's
-    fixed-point INTER_LINEAR by one grey level per pixel. Pages that fit the
-    canvas are not resampled, so their canvases are bit-exact;
-  * image paths are decoded with cv2, imported only then (the card machine
-    has no cv2, so it takes arrays).
+    16384) >> 15;
+  * `resize_linear_u8` is cv2.resize(..., INTER_LINEAR) for uint8: 11-bit
+    fixed-point coefficients, an int32 intermediate row, and the 2x2 box
+    average cv2 switches to at an exact 2:1 downscale. `rec_resize` and the
+    RGB-first canvas (`det_resize_to_canvas`) use it;
+  * `decode_canvas_luma_first` is the reference's native canvas decode (luma
+    first, then a float32 bilinear resize), which its default-luma lanes
+    take; colour (min-channel) pages and the full-resolution batch lane take
+    the RGB-first canvas, as in the reference;
+  * image paths are decoded with cv2, imported only then (arrays need none).
 """
 
 from __future__ import annotations
@@ -76,6 +80,15 @@ def to_gray(img: np.ndarray) -> np.ndarray:
     return y.astype(np.uint8)
 
 
+def to_gray_minchannel(img: np.ndarray) -> np.ndarray:
+    """uint8 RGB HWC -> uint8 HW, the per-pixel channel minimum: saturated
+    coloured ink on a light page keeps its contrast where 601 luma washes it
+    out. The projection of the colour reroute."""
+    if img.ndim == 2:
+        return img
+    return img.min(axis=2)
+
+
 def color_fraction(img: np.ndarray, chroma_thresh: int = 40,
                    stride: int = 4) -> float:
     """Fraction of (subsampled) pixels with strong chroma."""
@@ -86,22 +99,102 @@ def color_fraction(img: np.ndarray, chroma_thresh: int = 40,
     return float((chroma > chroma_thresh).mean())
 
 
-def _lerp_axis(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
-    n_in = img.shape[axis]
-    src = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
-    src = np.clip(src, 0.0, n_in - 1)
-    lo = np.floor(src).astype(np.int64)
-    hi = np.minimum(lo + 1, n_in - 1)
-    w = (src - lo).reshape([-1 if a == axis else 1 for a in range(img.ndim)])
-    return (np.take(img, lo, axis=axis) * (1.0 - w)
-            + np.take(img, hi, axis=axis) * w)
+def _cv2_axis(n_in: int, n_out: int):
+    """cv2's source index and float32 fraction for each output index."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale
+         - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    return s, f - s.astype(np.float32)
 
 
-def resize_bilinear(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
-    """uint8 (H, W[, C]) -> (h, w[, C]) bilinear with half-pixel centres."""
-    out = _lerp_axis(_lerp_axis(img.astype(np.float64), size_hw[0], 0),
-                     size_hw[1], 1)
-    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+def _fixed11(frac: np.ndarray):
+    """The pair of 11-bit fixed-point weights of a float32 fraction."""
+    one, k = np.float32(1.0), np.float32(2048.0)
+    return (np.rint((one - frac) * k).astype(np.int32),
+            np.rint(frac * k).astype(np.int32))
+
+
+def resize_linear_u8(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """uint8 (H, W[, C]) -> (h, w[, C]), bit-exact to
+    cv2.resize(img, (w, h), interpolation=cv2.INTER_LINEAR)."""
+    h, w = img.shape[:2]
+    nh, nw = size_hw
+    if (nh, nw) == (h, w):
+        return img.copy()
+    if h == 2 * nh and w == 2 * nw:       # cv2 takes INTER_AREA here
+        a = img.astype(np.int32)
+        return ((a[0::2, 0::2] + a[0::2, 1::2] + a[1::2, 0::2]
+                 + a[1::2, 1::2] + 2) >> 2).astype(np.uint8)
+    tail = (1,) * (img.ndim - 2)
+    sx, fx = _cv2_axis(w, nw)
+    lo, hi = sx < 0, sx >= w - 1
+    fx = np.where(lo | hi, np.float32(0.0), fx)
+    sx = np.where(lo, 0, np.where(hi, w - 1, sx))
+    a0, a1 = (a.reshape((1, -1) + tail) for a in _fixed11(fx))
+    sy, fy = _cv2_axis(h, nh)
+    b0, b1 = (b.reshape((-1, 1) + tail) for b in _fixed11(fy))
+    y0, y1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    src = img.astype(np.int32)
+    rows = src[:, sx] * a0 + src[:, np.minimum(sx + 1, w - 1)] * a1
+    out = (((b0 * (rows[y0] >> 4)) >> 16) + ((b1 * (rows[y1] >> 4)) >> 16)
+           + 2) >> 2
+    return out.astype(np.uint8)
+
+
+def rec_resize(img: np.ndarray, height: int = 32) -> np.ndarray:
+    """Aspect-preserving resize of a grayscale strip to the rec height."""
+    h, w = img.shape[:2]
+    new_w = max(1, int(round(w * height / h)))
+    return resize_linear_u8(img, (height, new_w))
+
+
+def _replicate_pad(canvas: np.ndarray, nh: int, nw: int) -> None:
+    canvas[nh:, :nw] = canvas[nh - 1:nh, :nw]
+    canvas[:, nw:] = canvas[:, nw - 1:nw]
+
+
+def decode_canvas_luma_first(img: np.ndarray, cfg: OcrConfig,
+                             chroma_thresh: int = 40):
+    """The reference's native canvas decode: uint8 RGB (H, W, 3) or luma
+    (H, W), any polarity -> (gray (S, S) uint8, scale, (nh, nw), chroma
+    fraction). Polarity is canonicalized (cfg.auto_invert) per channel
+    before the luma; a page larger than the canvas is resized AFTER the
+    luma with float32 bilinear weights (half-pixel centres); the chroma
+    fraction samples the source at stride 4. Pages that fit the canvas come
+    out equal to det_resize_to_canvas + to_gray."""
+    img = np.asarray(img)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    S = cfg.det_max_side
+    h, w = img.shape[:2]
+    frac = color_fraction(img, chroma_thresh)
+    if cfg.auto_invert and is_inverted(img):
+        img = np.asarray(255 - img, np.uint8)
+    luma = to_gray(img)
+    # the native decode rounds the canvas size half away from zero
+    scale = min(S / max(h, w), 1.0)
+    nh = max(1, int(np.floor(h * scale + 0.5)))
+    nw = max(1, int(np.floor(w * scale + 0.5)))
+    if (nh, nw) != (h, w):
+        def axis(n_in, n_out):
+            f = np.clip((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5,
+                        0.0, n_in - 1.0)
+            i0 = np.minimum(f.astype(np.int64), max(n_in - 2, 0))
+            return i0, np.minimum(i0 + 1, n_in - 1), \
+                (f - i0).astype(np.float32)
+        x0, x1, wx = axis(w, nw)
+        y0, y1, wy = axis(h, nh)
+        lf = luma.astype(np.float32)
+        r0, r1 = lf[y0], lf[y1]
+        top = r0[:, x0] + wx * (r0[:, x1] - r0[:, x0])
+        bot = r1[:, x0] + wx * (r1[:, x1] - r1[:, x0])
+        luma = (top + wy[:, None] * (bot - top)
+                + np.float32(0.5)).astype(np.uint8)
+    canvas = np.empty((S, S), np.uint8)
+    canvas[:nh, :nw] = luma
+    _replicate_pad(canvas, nh, nw)
+    return canvas, nh / h, (nh, nw), frac
 
 
 def det_resize_to_canvas(img: np.ndarray, cfg: OcrConfig
@@ -116,22 +209,27 @@ def det_resize_to_canvas(img: np.ndarray, cfg: OcrConfig
         return np.ascontiguousarray(img), 1.0, (h, w)
     scale = min(S / max(h, w), 1.0)
     nh, nw = max(1, int(round(h * scale))), max(1, int(round(w * scale)))
-    resized = resize_bilinear(img, (nh, nw)) if scale < 1.0 else img
+    resized = resize_linear_u8(img, (nh, nw)) if scale < 1.0 else img
     canvas = np.empty((S, S) + img.shape[2:], np.uint8)
     canvas[:nh, :nw] = resized
-    canvas[nh:, :nw] = resized[-1:]
-    canvas[:, nw:] = canvas[:, nw - 1:nw]
+    _replicate_pad(canvas, nh, nw)
     return canvas, nh / h, (nh, nw)
 
 
 def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
-                         color_frac: float = 0.0):
+                         *, gray_fn=None, color_frac: float = 0.0,
+                         originals_out=None):
     """Host decode of a chunk of pages onto luma detection canvases.
 
     Returns (grays (n, S, S) u8, scales (n,), valid_hw (n, 2), ok (n,) bool,
     colorful list): a page that fails to decode gets ok=False and a zero
     canvas; colorful[j] is True when color_frac > 0 and the page's
-    strong-chroma fraction exceeds it.
+    strong-chroma fraction exceeds it. Default-luma pages (gray_fn None)
+    take decode_canvas_luma_first, as the reference takes its native
+    decode; with a gray_fn the canvas is resized in RGB and then projected.
+    originals_out: optional dict; downscaled pages (scale < 1) store their
+    canonical full-resolution RGB original under their `idxs` key, for the
+    full-resolution recognition lane.
     """
     n = len(idxs)
     S = cfg.det_max_side
@@ -142,14 +240,47 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
     colorful = [False] * n
     for j, i in enumerate(idxs):
         try:
-            img = load_image(images[i], auto_invert=cfg.auto_invert)
-            canvas, scales[j], valid_hw[j] = det_resize_to_canvas(img, cfg)
-            grays[j] = to_gray(canvas)
-            if color_frac > 0 and color_fraction(canvas) > color_frac:
+            im = images[i]
+            if gray_fn is None:
+                arr = im if isinstance(im, np.ndarray) else load_image(
+                    im, auto_invert=False)
+                if arr.dtype != np.uint8 or arr.ndim not in (2, 3) or (
+                        arr.ndim == 3 and arr.shape[2] not in (1, 3)):
+                    raise ValueError(f"expected a uint8 HW or HWC image, "
+                                     f"got {arr.dtype} {arr.shape}")
+                grays[j], scales[j], valid_hw[j], cfrac = \
+                    decode_canvas_luma_first(arr, cfg)
+                img = arr
+            else:
+                img = load_image(im, auto_invert=cfg.auto_invert)
+                canvas, scales[j], valid_hw[j] = det_resize_to_canvas(
+                    img, cfg)
+                grays[j] = gray_fn(canvas)
+                cfrac = color_fraction(canvas)
+            if color_frac > 0 and cfrac > color_frac:
                 colorful[j] = True
+            if originals_out is not None and scales[j] < 0.999:
+                # canonical as load_image makes it: RGB, dark on light
+                originals_out[i] = load_image(img,
+                                              auto_invert=cfg.auto_invert)
         except (OSError, ValueError):
             ok[j] = False
     return grays, scales, valid_hw, ok, colorful
+
+
+def pad_strips_to_bucket(strips: Sequence[np.ndarray], cfg: OcrConfig,
+                         bucket_width: int = None
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack variable-width (rec_height, w) uint8 strips into (N,
+    rec_height, Wb) zero-padded, plus their widths (clipped to Wb)."""
+    widths = np.array([s.shape[1] for s in strips], np.int32)
+    if bucket_width is None:
+        bucket_width = cfg.rec_bucket_for_width(int(widths.max(initial=1)))
+    out = np.zeros((len(strips), cfg.rec_height, bucket_width), np.uint8)
+    for i, s in enumerate(strips):
+        w = min(s.shape[1], bucket_width)
+        out[i, :, :w] = s[:, :w]
+    return out, np.minimum(widths, bucket_width)
 
 
 # Bayer 4x4 ordered-dither offsets in integer form: 34 * b + 17
@@ -187,6 +318,30 @@ def unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
 
 def unpack_on_device(arr: torch.Tensor, cfg: OcrConfig) -> torch.Tensor:
     return unpack_nibbles(arr) if cfg.upload_bits == 4 else arr
+
+
+def _scale_shift(u8: torch.Tensor, mean: float, std: float) -> torch.Tensor:
+    """(u8 / 255 - mean) / std in float32 as XLA evaluates it on the CPU,
+    where the reference's numbers come from: u8 * f32(1/255) - mean
+    contracted into ONE fused multiply-add, then a multiply by f32(1/std).
+    The float64 product is exact and rounds once, so every device gives the
+    fused result's bits."""
+    c = float(np.float32(1.0 / 255.0))
+    m = float(np.float32(mean))
+    return (u8.double() * c - m).float() * (1.0 / std)
+
+
+def rec_normalize(batch_u8: torch.Tensor, mean: float = 0.5,
+                  std: float = 0.5) -> torch.Tensor:
+    """(N, H, W) uint8 -> (N, 1, H, W) float32, (x / 255 - mean) / std."""
+    return _scale_shift(batch_u8, mean, std)[:, None]
+
+
+def gray_normalize(gray_u8: torch.Tensor, mean: float, std: float
+                   ) -> torch.Tensor:
+    """(B, S, S) uint8 luma -> float32 pages for the warps,
+    (g / 255 - mean) / std."""
+    return _scale_shift(gray_u8, mean, std)
 
 
 def det_normalize_gray(gray_u8: torch.Tensor, mean, std) -> torch.Tensor:

@@ -205,6 +205,24 @@ def cls_state_dict(flat: Mapping) -> Tuple[Dict[str, np.ndarray], List[str]]:
     return _from_table(flat, _cls_key_table())
 
 
+def conv_bn_from_flax(flat: Mapping, module: str, eps: float = 1e-5
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One flax ConvBNRelu subtree (`module`/Conv_0 kernel HWIO, no bias,
+    and `module`/BatchNorm_0 scale, bias, mean, var) -> the (w, scale, bias)
+    float32 tensors ops.conv_fused.conv3x3_bn_relu takes, the BatchNorm
+    folded by fuse_bn. E.g. module="Backbone_0/ResBlock_0/ConvBNRelu_0"."""
+    from ocrjax_torch.ops.conv_fused import fuse_bn
+    bn = f"{module}/BatchNorm_0"
+    scale, bias = fuse_bn(
+        *(np.asarray(flat[k], np.float32) for k in (
+            f"params/{bn}/scale", f"params/{bn}/bias",
+            f"batch_stats/{bn}/mean", f"batch_stats/{bn}/var")), eps=eps)
+    w = np.asarray(flat[f"params/{module}/Conv_0/kernel"], np.float32)
+    return (torch.from_numpy(np.ascontiguousarray(w)),
+            torch.from_numpy(scale.astype(np.float32)),
+            torch.from_numpy(bias.astype(np.float32)))
+
+
 def load_into(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:
     """Strict load: every module key present, no key left over."""
     module.load_state_dict(

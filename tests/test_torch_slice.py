@@ -74,23 +74,37 @@ def test_single_page_ocr_matches_jax(engines, pages):
 
 
 def test_rotated_page_needs_a_later_lane(engines):
-    """A tilted page is rerouted by ocrjax to the staged lane; the port
-    refuses it rather than answer differently."""
-    _, port = engines
+    """A tilted page is rerouted by ocrjax to the bucketed lane (exact
+    homography crops); the port reroutes it the same way and answers as
+    ocrjax does."""
+    jax_engine, port = engines
     page = _page(201, n_lines=(2, 4), text_height=(22, 36),
                  max_rotation=8.0)
-    with pytest.raises(NotImplementedError, match="rotation reroute"):
-        port.ocr_batch([page], fused=True)
+    from ocrjax_torch import fused
+    res = port.ocr_batch([page], fused=True)[0]
+    quads = np.stack([line.box.quad for line in res.lines])
+    assert fused.should_reroute_rotation(quads, port.config)
+    _assert_same(res, jax_engine.ocr_batch([page], fused=True)[0])
 
 
 def test_unported_options_raise(engines, config, pages):
+    """Beam CTC and the opt-in flags stay refused until they are ported;
+    the lanes beside the fused one (the bucketed batch, an oversize page,
+    the staged lane with ocr_single_fused off) answer."""
     _, port = engines
-    with pytest.raises(NotImplementedError):
-        port.ocr_batch(pages[:1], fused=False)
     with pytest.raises(NotImplementedError):
         port.ocr(pages[0], beam=True)
     with pytest.raises(NotImplementedError):
-        port.ocr(np.zeros((600, 400), np.uint8))
+        port.ocr_batch(pages[:1], beam=True, fused=True)
+    with pytest.raises(NotImplementedError):
+        port.ocr_batch(pages[:1], beam=True)
     for flag in ("rec_try_flip", "det_int8", "rec_dewarp_curl"):
         with pytest.raises(NotImplementedError):
             OcrEngine(config=config.replace(**{flag: True}), device="cpu")
+    want = [line.text for line in port.ocr(pages[0]).lines]
+    assert [line.text for line in
+            port.ocr_batch(pages[:1], fused=False)[0].lines] == want
+    staged = OcrEngine.from_pretrained(
+        config=config.replace(ocr_single_fused=False), device="cpu")
+    assert [line.text for line in staged.ocr(pages[0]).lines] == want
+    assert port.ocr(np.full((600, 400), 255, np.uint8)).lines == []
