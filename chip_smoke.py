@@ -5,13 +5,20 @@
 
 Phases, in order; any failure exits non-zero:
   0. environment: the card's name and power limit, torch and CUDA versions,
-     and the build of every kernel under ocrjax_torch/csrc (one nvcc per
-     source, all started together);
+     the build of every kernel under ocrjax_torch/csrc (one nvcc per
+     source, all started together) and, where cuobjdump is found, how
+     often HGMMA occurs in the built conv_fused library's SASS;
   1. kernels: each kernel against its plain PyTorch version on the card at
-     its path's shapes and on edge cases. cc_label: bit-exact, with its time
-     (CUDA events, median of 25 launches), the plain version's time and the
-     card's lower bound. conv_fused: all 12 production shapes with bf16 x,
-     two with float32 x, three edge shapes, within the tolerances below;
+     its path's shapes and on edge cases, with the path every launch took.
+     cc_label: bit-exact on both paths (labels in shared memory, labels in
+     device memory); the 240^2 and 128^2 grids must take the shared path
+     unforced and 512^2 the global one; its time (CUDA events, median of 25
+     launches) beside the global path's in turns, an empty launch's, the
+     plain version's and the card's lower bound. conv_fused: the weight
+     pre-kernel against pack_weights_torch bit for bit, then all 12
+     production shapes with bf16 x (11 must take the wgmma path, crnn.conv0
+     the small-Cin path), two with float32 x, the edge shapes (the general
+     path) and two small wgmma shapes, within the tolerances below;
   2. fused lane in float32 (TF32 off): OcrEngine.from_pretrained() on cuda,
      ocr_batch(fused=True) over 16 pages at 960 (the 4 committed fixture
      pages, 4 times each) and ocr() on one page, held to the JAX engine's
@@ -20,8 +27,10 @@ Phases, in order; any failure exits non-zero:
   3. fused lane in bfloat16 (the shipped compute dtype): pages/s, device
      time per stage, and the share of lines whose strings equal the float32
      run's (at least 0.9);
-  4. conv bench: ocrjax_torch.bench_conv.run() at the 12 shapes (kernel,
-     cuDNN and plain times) with each shape's lower bound;
+  4. conv bench: ocrjax_torch.bench_conv.run() at the 12 shapes (the
+     kernel the wrapper picks and the general kernel in turns, cuDNN and
+     plain times) with each shape's lower bound; the picked kernels must sum
+     to less than the general one;
   5. staged and rerouted lanes in float32 over the committed lane fixture
      (a straight, a tilted, a colour, an inverted, a 40-line, an oversize
      and an oversize tilted page; line strips): ocr_batch(fused=True) with
@@ -31,8 +40,8 @@ Phases, in order; any failure exits non-zero:
   6. the same lanes in bfloat16 with device time per stage.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3 and
 5; conv_fused: 4); the counts are set to 0 just before such a phase and
-read just after. The last lines are the kernels' JSON record, the card's
-name and power limit, and {"ok": true, "device": ...}.
+read just after, in all and by path. The last lines are the kernels' JSON
+record, the card's name and power limit, and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import concurrent.futures
 import glob
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,6 +76,11 @@ CONV_FP32_SHAPES = ("db.res3 960/16", "crnn.conv5")
 CONV_EDGE_SHAPES = [("edge odd 1x7x13", 1, 7, 13, 3, 5),
                     ("edge 1x1 spatial", 1, 1, 1, 3, 5),
                     ("edge ragged tiles", 2, 9, 33, 17, 70)]
+# small shapes of the wgmma path: ragged pixel tiles with one k16 step of
+# which half is zero fill, and a short map with two Cout tiles whose 4 x 16
+# patches span four images, one more than the batch has
+CONV_WGMMA_EDGE_SHAPES = [("wgmma ragged 8->8", 2, 9, 33, 8, 8),
+                          ("wgmma short map", 3, 4, 80, 128, 256)]
 
 BOX_TOL = 0.011
 SCORE_TOL = 2e-3
@@ -110,40 +125,75 @@ def build_kernels():
         list(pool.map(_cuda.build, names))
     print(f"built {names} in {time.perf_counter() - t0:.2f} s "
           f"(per source: {_cuda.build_seconds})")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", _cuda.library_path("conv_fused")],
+            capture_output=True, text=True).stdout
+        print(f"conv_fused library: HGMMA occurs {sass.count('HGMMA')} times "
+              f"in its SASS")
     return names
 
 
 def phase_conv_kernel() -> float:
-    """conv_fused kernel vs conv_bn_relu_torch on the card; returns the
+    """conv_fused kernels vs conv_bn_relu_torch on the card; returns the
     largest |kernel - plain| over the 12 production shapes with bf16 x."""
     import torch
     from ocrjax_torch import bench_conv
     from ocrjax_torch.ops import conv_fused
+    # the weight pre-kernel first: a wrong layout there is a wrong product
+    for cin, cout in ((64, 64), (96, 24), (8, 8), (512, 512)):
+        plan = conv_fused.conv_plan(1, 8, 16, cin, cout)
+        w = torch.randn((3, 3, cin, cout), device="cuda")
+        got = conv_fused.pack_weights_cuda(w, plan["cin_pad"],
+                                           plan["cout_pad"])
+        torch.cuda.synchronize()
+        want = conv_fused.pack_weights_torch(w, plan["cin_pad"],
+                                             plan["cout_pad"])
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        print(f"  pack_weights {cin}->{cout} -> {tuple(got.shape)}: "
+              f"{'bit-equal to' if same else 'DIFFERS from'} its plain "
+              f"version")
+        if not same:
+            fail(f"pack_weights kernel differs from pack_weights_torch at "
+                 f"{cin}->{cout}")
     cases = [(s, torch.bfloat16) for s in bench_conv.SHAPES]
     cases += [(s, torch.float32) for s in bench_conv.SHAPES
               if s[0] in CONV_FP32_SHAPES]
-    cases += [(s, dt) for s in CONV_EDGE_SHAPES
+    cases += [(s, dt) for s in CONV_EDGE_SHAPES + CONV_WGMMA_EDGE_SHAPES
               for dt in (torch.bfloat16, torch.float32)]
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_prod = 0.0
+    counter = conv_fused.conv3x3_bn_relu_cuda
     g = torch.Generator(device="cuda").manual_seed(2)
     for shape, dtype in cases:
         x, w, _, _ = bench_conv.make_inputs(shape, "cuda", dtype)
         scale = torch.rand(shape[5], device="cuda", generator=g) + 0.5
         bias = torch.randn(shape[5], device="cuda", generator=g) * 0.1
-        got = conv_fused.conv3x3_bn_relu_cuda(x, w, scale, bias).float()
+        before = dict(counter.launches_by_path)
+        got = counter(x, w, scale, bias).float()
         torch.cuda.synchronize()
+        path = path_taken(counter, before)
         want = conv_fused.conv_bn_relu_torch(x, w, scale, bias).float()
         name = str(dtype).split(".")[1]
         rtol, atol = CONV_TOL[name]
         diff = (got - want).abs()
         err = float(diff.max())
         over = float((diff - (atol + rtol * want.abs())).max())
-        print(f"  conv_fused {shape[0]} {shape[1:]} {name}: "
+        print(f"  conv_fused {shape[0]} {shape[1:]} {name}, {path} path: "
               f"max |kernel - plain| = {err:.3e}")
         if got.shape != want.shape or not over <= 0.0:
-            fail(f"conv_fused kernel differs from its plain version on "
-                 f"{shape} {name}: {err} (rtol {rtol}, atol {atol})")
+            fail(f"conv_fused kernel ({path} path) differs from its plain "
+                 f"version on {shape} {name}: {err} (rtol {rtol}, "
+                 f"atol {atol})")
+        if shape in bench_conv.SHAPES:
+            expect = "wgmma" if shape[4] >= 64 else "small_cin"
+        elif shape in CONV_WGMMA_EDGE_SHAPES:
+            expect = "wgmma"
+        else:
+            expect = "generic"
+        if path != expect:
+            fail(f"conv_fused took the {path} path on {shape}, not {expect}")
         worst[name] = max(worst[name], err)
         if shape in bench_conv.SHAPES and dtype == torch.bfloat16:
             worst_prod = max(worst_prod, err)
@@ -169,22 +219,46 @@ def conv_bound(row) -> dict:
 def phase_conv_bench(counters, max_abs_err: float) -> dict:
     """bench_conv.run() at the 12 shapes; returns conv_fused's record."""
     from ocrjax_torch import bench_conv
+    from ocrjax_torch.ops.conv_fused import conv3x3_bn_relu_cuda
     reset(counters)
     rows = bench_conv.run()
     launches = read(counters, "conv bench", ["conv3x3_bn_relu_cuda"])
+    by_path = dict(conv3x3_bn_relu_cuda.launches_by_path)
     print(bench_conv.format_table(rows))
+    print(f"  launches by path: {by_path}")
     shapes = []
     for r in rows:
         b = conv_bound(r)
         shapes.append({
-            "shape": r["label"], "ms": r["kernel_ms"],
+            "shape": r["label"], "path": r["path"], "ms": r["kernel_ms"],
+            "generic_ms": r["generic_ms"],
+            "device_only_ms": r["kernel_device_ms"],
             "plain_ms": r["plain_ms"], "library_ms": r["cudnn_ms"],
             "library_conv_only_ms": r["conv_only_ms"],
+            "library_conv_only_device_only_ms": r["conv_only_device_ms"],
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "max_abs_err": r["max_abs_err"]})
-        print(f"  {r['label']}: bound {b['bound_ms']:.4f} ms "
-              f"({b['bound_by']}), kernel at "
+        print(f"  {r['label']}: {r['path']} path {r['kernel_ms']:.4f} ms, "
+              f"general path {r['generic_ms']:.4f} ms, bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), kernel at "
               f"{b['bound_ms'] / r['kernel_ms']:.3f} of it")
+        expect = "wgmma" if r["Cin"] >= 64 else "small_cin"
+        if r["path"] != expect:
+            fail(f"{r['label']} took the {r['path']} path, not {expect}")
+    ms = sum(r["kernel_ms"] for r in rows)
+    generic_ms = sum(r["generic_ms"] for r in rows)
+    def total(key):         # None if the profiler left one shape out
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(vals)
+    device_only_ms = total("kernel_device_ms")
+    print(f"  12 shapes summed: picked kernels {ms:.4f} ms (device only, by "
+          f"torch.profiler: {device_only_ms}), general kernel "
+          f"{generic_ms:.4f} ms, in turns; cuDNN's convolution alone "
+          f"{total('conv_only_ms'):.4f} ms (device only: "
+          f"{total('conv_only_device_ms')})")
+    if not ms < generic_ms:
+        fail(f"the wgmma and small-Cin kernels sum to {ms} ms, not below "
+             f"the general kernel's {generic_ms} ms")
     ops = sum(conv_bound(r)["ops_ms"] for r in rows)
     byt = sum(conv_bound(r)["bytes_ms"] for r in rows)
     # the entry's own numbers are the sums over the 12 shapes
@@ -192,20 +266,30 @@ def phase_conv_bench(counters, max_abs_err: float) -> dict:
             "source": "ocrjax_torch/csrc/conv_fused.cu",
             "replaces": "ocrjax/ops/pallas/conv_fused.py:88",
             "launches": launches["conv3x3_bn_relu_cuda"],
+            "launches_by_path": by_path,
             "max_abs_err": max(max_abs_err,
                                max(r["max_abs_err"] for r in rows)),
-            "ms": sum(r["kernel_ms"] for r in rows),
+            "ms": ms, "generic_ms": generic_ms,
+            "device_only_ms": device_only_ms,
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(s_["bound_ms"] for s_ in shapes),
             "bound_by": "operations" if ops >= byt else "bytes",
             "library_ms": sum(r["cudnn_ms"] for r in rows),
-            "library_conv_only_ms": sum(r["conv_only_ms"] for r in rows),
+            "library_conv_only_ms": total("conv_only_ms"),
+            "library_conv_only_device_only_ms": total("conv_only_device_ms"),
             "shapes": shapes}
+
+
+def path_taken(counter, before: dict) -> str:
+    """The path whose count moved since `before` was copied."""
+    return next(k for k, v in counter.launches_by_path.items()
+                if v != before[k])
 
 
 def reset(counters) -> None:
     for c in counters:
         c.launches = 0
+        c.launches_by_path = {k: 0 for k in c.launches_by_path}
 
 
 def read(counters, phase: str, must_launch) -> dict:
@@ -218,40 +302,75 @@ def read(counters, phase: str, must_launch) -> dict:
     return launches
 
 
+def no_global_ccl(phase: str) -> dict:
+    """The fused lane labels 240x240 grids only: fails if one of them went
+    to the general path. Returns cc_label's launches by path."""
+    from ocrjax_torch.ops.cc_label import label_components_cuda
+    by_path = dict(label_components_cuda.launches_by_path)
+    if by_path["global"] or not by_path["shared"]:
+        fail(f"phase '{phase}': cc_label launches by path {by_path}; the "
+             f"240x240 grids belong on the shared path")
+    return by_path
+
+
 def phase_kernels():
-    """cc_label kernel vs label_components_torch on the card."""
+    """cc_label kernels vs label_components_torch on the card."""
     import torch
-    from ocrjax_torch.ops.cc_label import (label_components_cuda,
+    from ocrjax_torch import bench_conv
+    from ocrjax_torch.ops.cc_label import (empty_launch_cuda,
+                                           label_components_cuda,
                                            label_components_torch)
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(f"16x240^2 density {d}", torch.rand((16, 240, 240),
-                                                  generator=g,
-                                                  device="cuda") > d, 4)
+
+    def rand(shape, density):
+        return torch.rand(shape, generator=g, device="cuda") > density
+    # name, bitmap, sweeps, the path it must take unforced
+    cases = [(f"16x240^2 density {d}", rand((16, 240, 240), d), 4, "shared")
              for d in (0.3, 0.5, 0.72)]
     snake = torch.zeros((2, 64, 64), dtype=torch.bool, device="cuda")
     snake[:, 2, 2:60] = True
     snake[:, 2:40, 59] = True
     snake[:, 39, 4:60] = True
     snake[0, 50:60, 5:25] = True
-    cases += [(f"snakes n_iters {it}", snake, it) for it in (4, 6)]
-    cases.append(("4x512^2", torch.rand((4, 512, 512), generator=g,
-                                        device="cuda") > 0.5, 4))
+    cases += [(f"snakes n_iters {it}", snake, it, "shared") for it in (4, 6)]
+    cases += [("4x128^2", rand((4, 128, 128), 0.5), 4, "shared"),
+              ("255x257", rand((1, 255, 257), 0.5), 4, "shared"),
+              ("3x37x70", rand((3, 37, 70), 0.3), 5, "shared"),
+              ("1x1", rand((1, 1, 1), 0.0), 4, "shared"),
+              ("256^2", rand((1, 256, 256), 0.5), 4, "global"),
+              ("4x512^2", rand((4, 512, 512), 0.5), 4, "global")]
     err = 0
-    for name, bm, it in cases:
-        got = label_components_cuda(bm, it)
-        torch.cuda.synchronize()
+    for name, bm, it, expect in cases:
         want = label_components_torch(bm, it)
-        diff = int((got.long() - want.long()).abs().max())
-        print(f"  cc_label {name}: max |kernel - plain| = {diff}")
-        if diff:
-            fail(f"cc_label kernel differs from its plain version on {name}")
-        err = max(err, diff)
+        # unforced, then the general path forced on the same grid
+        for forced in (None,) if expect == "global" else (None, "global"):
+            before = dict(label_components_cuda.launches_by_path)
+            got = label_components_cuda(bm, it, path=forced)
+            torch.cuda.synchronize()
+            path = path_taken(label_components_cuda, before)
+            diff = int((got.long() - want.long()).abs().max())
+            print(f"  cc_label {name}, {path} path"
+                  f"{' (forced)' if forced else ''}: "
+                  f"max |kernel - plain| = {diff}")
+            if diff:
+                fail(f"cc_label kernel ({path} path) differs from its plain "
+                     f"version on {name}")
+            if path != (forced or expect):
+                fail(f"cc_label took the {path} path on {name}, not "
+                     f"{forced or expect}")
+            err = max(err, diff)
 
     # timing at the main path's shape: one fused chunk, 16 pages of the
-    # 240x240 OR-pooled grid of a 960 canvas, 4 sweeps
+    # 240x240 OR-pooled grid of a 960 canvas, 4 sweeps; the shared path and
+    # the general path in turns, then an empty launch by the same events
     bm = cases[1][1]
     B, H, W = bm.shape
-    ms = time_ms(lambda: label_components_cuda(bm, 4))
+    ms, global_ms = bench_conv.time_in_turns_ms(
+        lambda: label_components_cuda(bm, 4),
+        lambda: label_components_cuda(bm, 4, path="global"), 25, True)
+    empty_ms = time_ms(empty_launch_cuda)
+    device_only_ms = bench_conv.device_ms(
+        lambda: label_components_cuda(bm, 4))
     plain_ms = time_ms(lambda: label_components_torch(bm, 4))
     nbytes = B * H * W * (1 + 4)          # bitmap in, int32 labels out
     # per pixel and sweep: 2 row + 2 column run-min steps, 9 window mins
@@ -259,13 +378,21 @@ def phase_kernels():
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / SIMT_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    print(f"  cc_label 16x240^2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-          f" bound {bound_ms * 1e3:.3f} us "
+    print(f"  cc_label 16x240^2: shared path {ms:.4f} ms, general path "
+          f"{global_ms:.4f} ms (in turns; {global_ms / ms:.2f}x), shared path "
+          f"device only by torch.profiler {device_only_ms} ms, empty "
+          f"launch {empty_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms * 1e3:.3f} us "
           f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+    if not ms * 4 <= global_ms:
+        fail(f"cc_label's shared path takes {ms} ms, more than a quarter of "
+             f"the general path's {global_ms} ms")
     return {"name": "cc_label", "route": "cuda",
             "source": "ocrjax_torch/csrc/cc_label.cu",
             "replaces": "ocrjax/ops/pallas/cc_label.py:102",
-            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": float(err), "ms": ms, "global_path_ms": global_ms,
+            "device_only_ms": device_only_ms,
+            "empty_launch_ms": empty_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
@@ -334,6 +461,7 @@ def phase_fp32(pages, expected, counters):
     results = eng.ocr_batch(pages, fused=True)
     single = eng.ocr(pages[0])
     launches = read(counters, "fused float32", ["label_components_cuda"])
+    no_global_ccl("fused float32")
     worst = max(check_against(results, expected),
                 check_against([single], expected[:1]))
     n_lines = sum(len(r.lines) for r in results)
@@ -358,6 +486,7 @@ def phase_bf16(pages, fp32_results, counters, reps: int = 3):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read(counters, "fused bfloat16", ["label_components_cuda"])
+    ccl_by_path = no_global_ccl("fused bfloat16")
     timer = StageTimer()
     with timer.active():
         eng.ocr_batch(pages, fused=True)
@@ -389,7 +518,7 @@ def phase_bf16(pages, fp32_results, counters, reps: int = 3):
     if agree < BF16_AGREE_MIN:
         fail(f"bf16 strings agree with fp32 on {agree:.3f} < "
              f"{BF16_AGREE_MIN}")
-    return eng, launches
+    return eng, launches, ccl_by_path
 
 
 def phase_lanes_fp32(eng, fixture, counters):
@@ -405,6 +534,8 @@ def phase_lanes_fp32(eng, fixture, counters):
     recs = eng.recognize_strips(strips)
     launches = read(counters, "staged lanes float32",
                     ["label_components_cuda"])
+    from ocrjax_torch.ops.cc_label import label_components_cuda
+    by_path = dict(label_components_cuda.launches_by_path)
     worst = max(
         check_against(fused, want["fused_batch"], "fused batch page"),
         check_against(bucketed, want["bucketed_batch"], "bucketed page"),
@@ -426,7 +557,8 @@ def phase_lanes_fp32(eng, fixture, counters):
           f"tilted pages rerouted), bucketed batch, ocr() and detect() on "
           f"the oversize page, {len(recs)} strips: {n_lines} lines match "
           f"the JAX float32 outputs, max box diff {worst:.5f} px, strip "
-          f"confidence diff {dconf:.2e}; launches {launches}")
+          f"confidence diff {dconf:.2e}; launches {launches}, cc_label by "
+          f"path {by_path}")
     return fused, bucketed
 
 
@@ -504,7 +636,7 @@ def main() -> int:
     pages, expected = load_fixture()
     eng32, fp32 = phase_fp32(pages, expected, counters)
     print("== 3. fused lane, bfloat16")
-    eng16, launches = phase_bf16(pages, fp32, counters)
+    eng16, launches, ccl_by_path = phase_bf16(pages, fp32, counters)
     print("== 4. conv bench")
     conv = phase_conv_bench(counters, conv_err)
     print("== 5. staged and rerouted lanes, float32")
@@ -512,7 +644,8 @@ def main() -> int:
     lanes32 = phase_lanes_fp32(eng32, fixture, counters)
     print("== 6. staged and rerouted lanes, bfloat16")
     phase_lanes_bf16(eng16, fixture, lanes32)
-    kernels = [{**ccl, "launches": launches["label_components_cuda"]}, conv]
+    kernels = [{**ccl, "launches": launches["label_components_cuda"],
+                "launches_by_path": ccl_by_path}, conv]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

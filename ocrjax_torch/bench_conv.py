@@ -1,24 +1,26 @@
-"""Times the fused conv kernel against cuDNN and its plain version at the
-stride-1 3x3 conv shapes of the production models (counterpart of
-scripts/bench_pallas_conv.py).
+"""Times the fused conv kernels against cuDNN, each other and the plain
+version at the stride-1 3x3 conv shapes of the production models (counterpart
+of scripts/bench_pallas_conv.py).
 
     python -m ocrjax_torch.bench_conv            # on the card
     python -m ocrjax_torch.bench_conv --device cpu --reps 2
 
 DB backbone ResBlock bodies run at 1/4 .. 1/32 of the 960 canvas with a
 16-page chunk; the CRNN convs at the (256, 32, 320) strip bucket. On the card
-the times are CUDA events around each call (median); on the CPU the wrapper
-runs the plain version and the host clock times it, which says nothing about
-the card.
+the times are CUDA events around each call (median), and the kernel the
+wrapper picks (wgmma or small-Cin) and the general kernel are timed in turns;
+on the CPU the wrapper runs the plain version and the host clock times it,
+which says nothing about the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import statistics
 import subprocess
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,34 +58,77 @@ def make_inputs(shape: Shape, device, dtype=torch.bfloat16, seed: int = 0):
             bias.to(device))
 
 
+def _once_ms(fn: Callable[[], torch.Tensor], cuda: bool) -> float:
+    if cuda:
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        return s.elapsed_time(e)
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def time_ms(fn: Callable[[], torch.Tensor], reps: int, cuda: bool) -> float:
     """Median time of one call: CUDA events on the card, host clock on the
     CPU. One warm-up call first."""
     fn()
-    times = []
-    for _ in range(reps):
-        if cuda:
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return statistics.median(_once_ms(fn, cuda) for _ in range(reps))
+
+
+def device_ms(fn: Callable[[], torch.Tensor], reps: int = 10,
+              tries: int = 3) -> Optional[float]:
+    """Time the card spends in the kernels of one call of fn, from
+    torch.profiler over `reps` calls: the mean duration of each kernel,
+    summed over the kernels (fn launches each of its kernels once; no host
+    time, no launch gaps). A trace that comes back empty is taken again, up
+    to `tries` times; None where the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_call_us = sum(
+            k.device_time_total / k.count for k in prof.key_averages()
+            if getattr(k, "device_time_total", 0) > 0 and k.count)
+        if per_call_us > 0:
+            return per_call_us / 1e3
+    return None
+
+
+def time_in_turns_ms(a: Callable[[], torch.Tensor],
+                     b: Callable[[], torch.Tensor], reps: int, cuda: bool
+                     ) -> Tuple[float, float]:
+    """Median times of a and b, called in turns (a b, b a, a b, ...) so that
+    both see the same card in the same state."""
+    a()
+    b()
+    ta, tb = [], []
+    for i in range(reps):
+        for fn, out in ((a, ta), (b, tb)) if i % 2 == 0 else ((b, tb),
+                                                               (a, ta)):
+            out.append(_once_ms(fn, cuda))
+    return statistics.median(ta), statistics.median(tb)
 
 
 def run(device: str = "cuda", shapes: Sequence[Shape] = SHAPES,
         reps: int = 20) -> List[Dict]:
-    """Per shape: kernel_ms (conv3x3_bn_relu), cudnn_ms (conv_bn_relu_cudnn,
-    the whole function through the library), conv_only_ms (F.conv2d alone on
-    operands already cast to bf16 channels-last: the library's convolution
-    without cast or epilogue), plain_ms, and the max |kernel - plain| on
-    bf16 inputs."""
+    """Per shape: path (the kernel the wrapper picks; "plain" on the CPU),
+    kernel_ms (conv3x3_bn_relu) and generic_ms (the general kernel forced on
+    the same inputs; on the CPU the plain version again) timed in turns,
+    kernel_device_ms (the card's time in the call's kernels by torch.profiler,
+    without the wrapper's host time; None on the CPU or without a trace),
+    cudnn_ms (conv_bn_relu_cudnn, the whole function through the library),
+    conv_only_ms (F.conv2d alone on operands already cast to bf16
+    channels-last: the library's convolution without cast or epilogue) and
+    conv_only_device_ms (the same by torch.profiler, kernels only),
+    plain_ms, and the max |kernel - plain| on bf16 inputs."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: pass device='cpu' to run "
@@ -100,16 +145,30 @@ def run(device: str = "cuda", shapes: Sequence[Shape] = SHAPES,
         xr = args[0].permute(0, 3, 1, 2)
         wr = args[1].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
+        if cuda:
+            aligned = all(t.data_ptr() % 16 == 0 for t in args)
+            path = conv_fused.conv_path(B, H, W, cin, cout, aligned)
+            generic = functools.partial(conv_fused.conv3x3_bn_relu_cuda,
+                                        *args, path="generic")
+        else:
+            path = "plain"
+            generic = functools.partial(conv_fused.conv3x3_bn_relu, *args)
+        kernel_ms, generic_ms = time_in_turns_ms(
+            lambda: conv_fused.conv3x3_bn_relu(*args), generic, reps, cuda)
         rows.append({
             "label": label, "B": B, "H": H, "W": W, "Cin": cin, "Cout": cout,
             "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
-            "kernel_ms": time_ms(lambda: conv_fused.conv3x3_bn_relu(*args),
-                                 reps, cuda),
+            "path": path, "kernel_ms": kernel_ms, "generic_ms": generic_ms,
+            "kernel_device_ms": device_ms(
+                lambda: conv_fused.conv3x3_bn_relu(*args)) if cuda else None,
             "cudnn_ms": time_ms(lambda: conv_fused.conv_bn_relu_cudnn(*args),
                                 reps, cuda),
             "conv_only_ms": time_ms(
                 lambda: torch.nn.functional.conv2d(xr, wr, padding=1),
                 reps, cuda),
+            "conv_only_device_ms": device_ms(
+                lambda: torch.nn.functional.conv2d(xr, wr, padding=1))
+            if cuda else None,
             "plain_ms": time_ms(lambda: conv_fused.conv_bn_relu_torch(*args),
                                 reps, cuda),
             "max_abs_err": err,
@@ -117,16 +176,23 @@ def run(device: str = "cuda", shapes: Sequence[Shape] = SHAPES,
     return rows
 
 
+def _fmt(ms: Optional[float]) -> str:
+    return "not measured" if ms is None else f"{ms:.3f}"
+
+
 def format_table(rows: Sequence[Dict]) -> str:
-    out = ["| shape | B | HxW | Cin->Cout | cuDNN ms | conv only ms "
-           "| kernel ms | plain ms | cuDNN/kernel | max err |",
-           "|---|---|---|---|---|---|---|---|---|---|"]
+    out = ["| shape | B | HxW | Cin->Cout | path | cuDNN ms | conv only ms "
+           "| conv only ms, device only | kernel ms | kernel ms, device only "
+           "| general kernel ms | plain ms | cuDNN/kernel | max err |",
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
         out.append(
             f"| {r['label']} | {r['B']} | {r['H']}x{r['W']} "
-            f"| {r['Cin']}->{r['Cout']} | {r['cudnn_ms']:.3f} "
-            f"| {r['conv_only_ms']:.3f} | {r['kernel_ms']:.3f} "
-            f"| {r['plain_ms']:.3f} "
+            f"| {r['Cin']}->{r['Cout']} | {r['path']} | {r['cudnn_ms']:.3f} "
+            f"| {r['conv_only_ms']:.3f} "
+            f"| {_fmt(r['conv_only_device_ms'])} | {r['kernel_ms']:.3f} "
+            f"| {_fmt(r['kernel_device_ms'])} "
+            f"| {r['generic_ms']:.3f} | {r['plain_ms']:.3f} "
             f"| {r['cudnn_ms'] / r['kernel_ms']:.2f}x "
             f"| {r['max_abs_err']:.2e} |")
     return "\n".join(out)

@@ -1,38 +1,61 @@
 // Fixed-sweep 8-connected component labeling for Hopper (sm_90a).
 //
-// Replaces the TPU kernel ocrjax/ops/pallas/cc_label.py::label_components_pallas
+// Replaces the TPU kernel
+// ocrjax/ops/pallas/cc_label.py::label_components_pallas
 // (body _ccl_kernel, helpers _seg_scan_dir, _run_min, _neighbor_min). It
 // computes exactly what ocrjax_torch.ops.cc_label.label_components_torch
 // computes, bit for bit: labels start as the linear pixel index on
 // foreground and 2**30 on background, then each of `n_iters` sweeps does
-//   1. a segmented run-min along every row (forward then backward walk),
+//   1. a segmented run-min along every row,
 //   2. the same along every column,
-//   3. a 3x3 neighbourhood min, written out of place.
+//   3. a 3x3 neighbourhood min, out of place in effect.
 // It is NOT a converged CCL: union-find would give other labels wherever a
 // component needs more than n_iters sweeps, and the box extractor relies on
 // the fixed-sweep labels.
 //
-// Design. One block per page, the grid is B. Labels live in a global int32
-// buffer (the output); the 3x3 min writes a second global buffer (scratch)
-// and the two swap roles, so a sweep can never hop more than one pixel
-// diagonally. Phases are separated by __syncthreads(). Foreground needs no
-// buffer of its own: a pixel is foreground iff its label is < 2**30, at every
-// step. The run-min walks are done in place: after the forward walk each
-// pixel holds its run's prefix min, and the backward walk spreads the run's
-// min (the last prefix min) over the run, so the result is the run-min.
-// One thread walks one row (or column); up to 1024 threads stride over the
-// rows, so any H, W runs (240^2 on the main path, 512^2 tiles) with no size
-// ceiling and no fallback.
+// Two kernels, one block per page each; ocrjax_torch/ops/cc_label.py picks
+// (ccl_path) and this file checks the choice again.
+//
+// Shared path (cc_label_shared_kernel): grids of at most 65,535 pixels, the
+// 240x240 and 128x128 grids of the OCR lanes among them. The labels live in
+// the block's shared memory for all sweeps as uint16 linear indices with
+// 0xFFFF as background; the bitmap is read once from global memory and the
+// int32 labels (0xFFFF -> 2**30) are written once, which is all the traffic
+// the byte bound counts. Byte budget: one buffer of H x Ws x 2 B, Ws = W
+// rounded up to 8 so that a row is a whole number of 16-byte chunks of 8
+// pixels (padding pixels are background): 115,200 B at 240x240, at most
+// 147,456 B (kMaxChunks chunks), of the 232,448 B a block may use. A second
+// uint16 buffer would fit at 240x240 (230,400 B) but not at 255x257, and an
+// int32 buffer doubles the shared-memory traffic, so there is one uint16
+// buffer and the 3x3 min goes through registers: every thread computes the
+// 3x3 mins of its chunks (at most kMaxChunksPerThread x 8 pixels, packed in
+// pairs), the block synchronises, then every thread writes them back, so a
+// sweep can never hop more than one pixel diagonally.
+//   Rows: a warp takes a row, a lane 8 consecutive pixels in registers. The
+// lane scans its pixels, the lanes combine (tail of the open run, "no
+// background in my pixels") with a segmented shuffle scan, and the carry is
+// applied in a second local pass: a forward scan gives every pixel its run's
+// prefix min, the backward scan over those spreads the run's min. Rows wider
+// than 256 pixels take several rounds with a carry between them.
+//   Columns: one thread walks two neighbouring columns as one packed 32-bit
+// word of shared memory (__vminu2), loads batched 8 rows ahead of the
+// dependent min chain so that a step costs a few cycles, not a round trip.
+// That is the simple choice of the two (row bands with carries would use
+// more than Ws/2 threads); the column phase is a few microseconds a sweep.
+//   3x3: per chunk three 16-byte row loads and six halfword neighbour loads,
+// vertical then horizontal packed mins.
+//
+// Global path (cc_label_kernel): any H, W (the 512x512 tiles). Labels live in
+// a global int32 buffer (the output); the 3x3 min writes a second global
+// buffer (scratch) and the two swap roles. One thread walks one row (or
+// column) in place: after the forward walk each pixel holds its run's prefix
+// min, and the backward walk spreads the run's min over the run.
 //
 // Bound. On the main path (16 pages of 240x240 per fused chunk, one launch
 // per chunk) the function must read 16 x 57,600 B of bitmap and write
-// 16 x 230,400 B of labels: 4.6 MB, about 1.4 us at 3.35 TB/s. The kernel is
-// far from that: only 16 of 132 SMs work, and each row walk is a chain of
-// dependent loads. The working set (two 230,400 B buffers per page) stays in
-// the 50 MB L2. A shared-memory version cannot hold a 240^2 int32 grid plus
-// a second buffer in the 232,448 B a block may use; a later version can keep
-// uint16 labels (2 x 115,200 B) in shared memory and spread the walks over
-// warps.
+// 16 x 230,400 B of labels: 4.6 MB, about 1.4 us at 3.35 TB/s, which is less
+// than an empty kernel launch takes, so no design reaches it; the shared
+// path is bound by its 16 blocks' shared-memory work and by the launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -116,19 +139,323 @@ __global__ void cc_label_kernel(const uint8_t* __restrict__ bitmap,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Shared-memory path
+// ---------------------------------------------------------------------------
+
+constexpr int kSharedThreads = 1024;
+constexpr int kMaxChunksPerThread = 9;
+constexpr int kMaxChunks = kSharedThreads * kMaxChunksPerThread;
+constexpr int kMaxSharedPixels = 65535;
+constexpr uint32_t kBg = 0xFFFFu;          // background, one pixel
+constexpr uint32_t kBg2 = 0xFFFFFFFFu;     // background, a packed pair
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+
+__device__ __forceinline__ void unpack8(const uint4& q, uint32_t (&v)[8]) {
+  v[0] = q.x & kBg; v[1] = q.x >> 16;
+  v[2] = q.y & kBg; v[3] = q.y >> 16;
+  v[4] = q.z & kBg; v[5] = q.z >> 16;
+  v[6] = q.w & kBg; v[7] = q.w >> 16;
+}
+
+__device__ __forceinline__ uint4 pack8(const uint32_t (&v)[8]) {
+  return make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
+                    v[4] | (v[5] << 16), v[6] | (v[7] << 16));
+}
+
+// Inclusive segmented min-scan over the 256 pixels a warp holds (8 a lane),
+// toward higher indices or, with REV, toward lower ones. Background pixels
+// break the runs and stay background. `carry` is the min of the run that is
+// open where the scan enters the warp's pixels (kBg if none) and comes back
+// as the one open where it leaves them.
+template <bool REV>
+__device__ __forceinline__ void seg_scan_warp(uint32_t (&v)[8],
+                                              uint32_t& carry, int lane) {
+  // the lane's own pixels: min of the run open at their end, and whether
+  // no background pixel broke it
+  uint32_t tail = kBg;
+  uint32_t open = 1u;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t x = v[REV ? 7 - i : i];
+    const bool bg = x == kBg;
+    tail = bg ? kBg : min(tail, x);
+    open = bg ? 0u : open;
+  }
+  // inclusive scan of (tail, open) over the lanes in scan order
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t mine = tail | (open << 16);
+    const uint32_t got = REV ? __shfl_down_sync(kFullMask, mine, d)
+                             : __shfl_up_sync(kFullMask, mine, d);
+    const bool valid = REV ? (lane + d < 32) : (lane >= d);
+    if (valid) {
+      if (open) tail = min(tail, got & kBg);
+      open &= got >> 16;
+    }
+  }
+  const uint32_t incl = tail | (open << 16);
+  // what enters this lane: the scan of the lanes before it, then the carry
+  uint32_t before = REV ? __shfl_down_sync(kFullMask, incl, 1)
+                        : __shfl_up_sync(kFullMask, incl, 1);
+  if (lane == (REV ? 31 : 0)) before = kBg | (1u << 16);
+  uint32_t run = before & kBg;
+  if (before >> 16) run = min(run, carry);
+  // what leaves the warp's pixels
+  const uint32_t last = __shfl_sync(kFullMask, incl, REV ? 0 : 31);
+  carry = (last >> 16) ? min(last & kBg, carry) : (last & kBg);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int j = REV ? 7 - i : i;
+    run = (v[j] == kBg) ? kBg : min(run, v[j]);
+    v[j] = run;
+  }
+}
+
+// One step of a packed column walk: run-min of two neighbouring columns.
+__device__ __forceinline__ uint32_t col_step(uint32_t run, uint32_t v) {
+  return __vminu2(run, v) | __vcmpeq2(v, kBg2);
+}
+
+__global__ void __launch_bounds__(kSharedThreads, 1)
+cc_label_shared_kernel(const uint8_t* __restrict__ bitmap,
+                       int32_t* __restrict__ labels, int H, int W, int Ws,
+                       int n_iters, int vec_in, int vec_out) {
+  extern __shared__ uint4 lab_q[];           // H x Ws uint16, 16-byte chunks
+  uint16_t* lab = reinterpret_cast<uint16_t*>(lab_q);
+  uint32_t* lab2 = reinterpret_cast<uint32_t*>(lab_q);
+  const int64_t page = static_cast<int64_t>(blockIdx.x) * H * W;
+  const uint8_t* fg = bitmap + page;
+  int32_t* out = labels + page;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nchunks = Ws >> 3;               // chunks in a row
+  const int total = H * nchunks;             // chunks in the page
+  const int half = Ws >> 1;                  // packed pairs in a row
+
+  // the bitmap, read once: label = linear index on foreground
+  for (int k = tid; k < total; k += kSharedThreads) {
+    const int y = k / nchunks;
+    const int x0 = (k - y * nchunks) << 3;
+    const uint8_t* src = fg + y * W + x0;
+    uint32_t v[8];
+    if (vec_in) {
+      const uint2 b = *reinterpret_cast<const uint2*>(src);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const uint32_t byte = ((i < 4 ? b.x : b.y) >> (8 * (i & 3))) & 0xFFu;
+        v[i] = byte ? static_cast<uint32_t>(y * W + x0 + i) : kBg;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = (x0 + i < W && src[i]) ? static_cast<uint32_t>(y * W + x0 + i)
+                                      : kBg;
+    }
+    lab_q[k] = pack8(v);
+  }
+  __syncthreads();
+
+  for (int it = 0; it < n_iters; ++it) {
+    // 1. run-min along rows: a warp a row, a lane 8 pixels
+    for (int y = warp; y < H; y += kSharedThreads / 32) {
+      uint4* row = lab_q + y * nchunks;
+      uint32_t v[8];
+      if (nchunks <= 32) {
+        const bool mine = lane < nchunks;
+        unpack8(mine ? row[lane] : make_uint4(kBg2, kBg2, kBg2, kBg2), v);
+        uint32_t carry = kBg;
+        seg_scan_warp<false>(v, carry, lane);
+        carry = kBg;
+        seg_scan_warp<true>(v, carry, lane);
+        if (mine) row[lane] = pack8(v);
+      } else {
+        const int rounds = (nchunks + 31) >> 5;
+        uint32_t carry = kBg;
+        for (int r = 0; r < rounds; ++r) {
+          const int c = (r << 5) + lane;
+          const bool mine = c < nchunks;
+          unpack8(mine ? row[c] : make_uint4(kBg2, kBg2, kBg2, kBg2), v);
+          seg_scan_warp<false>(v, carry, lane);
+          if (mine) row[c] = pack8(v);
+        }
+        carry = kBg;
+        for (int r = rounds - 1; r >= 0; --r) {
+          const int c = (r << 5) + lane;
+          const bool mine = c < nchunks;
+          unpack8(mine ? row[c] : make_uint4(kBg2, kBg2, kBg2, kBg2), v);
+          seg_scan_warp<true>(v, carry, lane);
+          if (mine) row[c] = pack8(v);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. run-min along columns: a thread two packed columns, loads batched
+    for (int t = tid; t < half; t += kSharedThreads) {
+      uint32_t* col = lab2 + t;
+      uint32_t run = kBg2;
+      int y = 0;
+      for (; y + 8 <= H; y += 8) {
+        uint32_t v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = col[(y + i) * half];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          run = col_step(run, v[i]);
+          col[(y + i) * half] = run;
+        }
+      }
+      for (; y < H; ++y) {
+        run = col_step(run, col[y * half]);
+        col[y * half] = run;
+      }
+      run = kBg2;
+      y = H - 1;
+      for (; y >= 7; y -= 8) {
+        uint32_t v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = col[(y - i) * half];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          run = col_step(run, v[i]);
+          col[(y - i) * half] = run;
+        }
+      }
+      for (; y >= 0; --y) {
+        run = col_step(run, col[y * half]);
+        col[y * half] = run;
+      }
+    }
+    __syncthreads();
+
+    // 3. 3x3 min into registers, then back: out of place in effect
+    uint4 keep[kMaxChunksPerThread];
+#pragma unroll
+    for (int j = 0; j < kMaxChunksPerThread; ++j) {
+      const int k = j * kSharedThreads + tid;
+      if (k < total) {
+        const int y = k / nchunks;
+        const int c = k - y * nchunks;
+        const uint4 centre = lab_q[k];
+        uint4 m = centre;
+        uint32_t left = kBg, right = kBg;    // columns 8c - 1 and 8c + 8
+#pragma unroll
+        for (int dy = -1; dy <= 1; ++dy) {
+          const int yy = y + dy;
+          if (yy < 0 || yy >= H) continue;
+          const uint16_t* r16 = lab + yy * Ws + (c << 3);
+          if (dy != 0) {
+            const uint4 q = lab_q[yy * nchunks + c];
+            m.x = __vminu2(m.x, q.x);
+            m.y = __vminu2(m.y, q.y);
+            m.z = __vminu2(m.z, q.z);
+            m.w = __vminu2(m.w, q.w);
+          }
+          if (c > 0) left = min(left, static_cast<uint32_t>(r16[-1]));
+          if (c + 1 < nchunks)
+            right = min(right, static_cast<uint32_t>(r16[8]));
+        }
+        // m: vertical mins of the chunk's 8 columns; now the horizontal min
+        // with the columns one to the left and one to the right
+        uint4 o;
+        o.x = __vminu2(m.x, __vminu2((m.x << 16) | left,
+                                     __funnelshift_r(m.x, m.y, 16)));
+        o.y = __vminu2(m.y, __vminu2(__funnelshift_l(m.x, m.y, 16),
+                                     __funnelshift_r(m.y, m.z, 16)));
+        o.z = __vminu2(m.z, __vminu2(__funnelshift_l(m.y, m.z, 16),
+                                     __funnelshift_r(m.z, m.w, 16)));
+        o.w = __vminu2(m.w, __vminu2(__funnelshift_l(m.z, m.w, 16),
+                                     (m.w >> 16) | (right << 16)));
+        // background stays background
+        o.x |= __vcmpeq2(centre.x, kBg2);
+        o.y |= __vcmpeq2(centre.y, kBg2);
+        o.z |= __vcmpeq2(centre.z, kBg2);
+        o.w |= __vcmpeq2(centre.w, kBg2);
+        keep[j] = o;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kMaxChunksPerThread; ++j) {
+      const int k = j * kSharedThreads + tid;
+      if (k < total) lab_q[k] = keep[j];
+    }
+    __syncthreads();
+  }
+
+  // the labels, written once
+  for (int k = tid; k < total; k += kSharedThreads) {
+    const int y = k / nchunks;
+    const int x0 = (k - y * nchunks) << 3;
+    uint32_t v[8];
+    unpack8(lab_q[k], v);
+    int32_t o[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      o[i] = v[i] == kBg ? kBig : static_cast<int32_t>(v[i]);
+    int32_t* dst = out + y * W + x0;
+    if (vec_out) {
+      reinterpret_cast<int4*>(dst)[0] = make_int4(o[0], o[1], o[2], o[3]);
+      reinterpret_cast<int4*>(dst)[1] = make_int4(o[4], o[5], o[6], o[7]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (x0 + i < W) dst[i] = o[i];
+    }
+  }
+}
+
+__global__ void empty_kernel() {}
+
 }  // namespace
 
-// bitmap (B, H, W) uint8, labels and scratch (B, H, W) int32, all contiguous
-// on the device. Launches on `stream`; returns cudaGetLastError().
+// bitmap (B, H, W) uint8, labels (B, H, W) int32, both contiguous on the
+// device. path 1: the shared-memory kernel (H * W <= 65,535 and at most
+// 9,216 chunks of 8 pixels in rows padded to 8; scratch is not read).
+// path 0: the global-memory kernel, any size, with scratch (B, H, W) int32.
+// Launches on `stream`; returns the first CUDA error, 0 if none.
 extern "C" int ocj_cc_label(const void* bitmap, void* labels, void* scratch,
-                            int B, int H, int W, int n_iters, void* stream) {
+                            int B, int H, int W, int n_iters, int path,
+                            void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == 1) {
+    const int Ws = (W + 7) / 8 * 8;
+    const int64_t pixels = static_cast<int64_t>(H) * W;
+    const int64_t chunks = static_cast<int64_t>(H) * (Ws / 8);
+    if (pixels > kMaxSharedPixels || chunks > kMaxChunks)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int bytes = static_cast<int>(chunks) * 16;
+    cudaError_t err = cudaFuncSetAttribute(
+        cc_label_shared_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int vec_in =
+        W % 8 == 0 && reinterpret_cast<uintptr_t>(bitmap) % 8 == 0;
+    const int vec_out =
+        W % 8 == 0 && reinterpret_cast<uintptr_t>(labels) % 16 == 0;
+    cc_label_shared_kernel<<<B, kSharedThreads, bytes, s>>>(
+        static_cast<const uint8_t*>(bitmap), static_cast<int32_t*>(labels), H,
+        W, Ws, n_iters, vec_in, vec_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (path != 0 || scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int longest = H > W ? H : W;
   int threads = ((longest + 31) / 32) * 32;
   if (threads < 256) threads = 256;
   if (threads > 1024) threads = 1024;
-  cc_label_kernel<<<B, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cc_label_kernel<<<B, threads, 0, s>>>(
       static_cast<const uint8_t*>(bitmap), static_cast<int32_t*>(labels),
       static_cast<int32_t*>(scratch), H, W, n_iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel on `stream`: what a launch alone costs on this card.
+extern "C" int ocj_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,13 +9,16 @@ import time: the CPU tests import every module without a CUDA toolkit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -24,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[Tuple[str, str], Callable[..., int]] = {}
 build_seconds: Dict[str, float] = {}
 
 
@@ -66,3 +70,25 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _libs:
         _libs[name] = ctypes.CDLL(build(name))
     return _libs[name]
+
+
+def entry(lib: str, name: str, argtypes: Sequence) -> Callable[..., int]:
+    """The C function `name` of library `lib` (built and loaded at first
+    use), returning a CUDA error code; its argument types are set once. Each
+    pointer and the stream must be a ctypes.c_void_p, or ctypes cuts it to 32
+    bits."""
+    fn = _entries.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(lib, name)] = fn
+    return fn
+
+
+def on_device(device: torch.device):
+    """Context in which `device` is the current CUDA device, where a kernel
+    launches; free when it already is."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

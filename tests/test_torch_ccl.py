@@ -77,3 +77,37 @@ def test_wrapper_takes_plain_version_on_cpu():
     with pytest.raises(ValueError):
         cc_label.label_components_cuda(bm, 4)
 
+
+
+@pytest.mark.parametrize("H,W,path", [
+    (240, 240, "shared"), (128, 128, "shared"), (255, 257, "shared"),
+    (256, 256, "global"), (512, 512, "global"), (1, 1, "shared"),
+    (37, 70, "shared"), (1, 65535, "shared"), (65535, 1, "global"),
+    (3, 21845, "shared"), (9216, 7, "shared"), (9217, 7, "global")])
+def test_path_choice_is_a_pure_function_of_the_grid(H, W, path):
+    """The shared-memory kernel takes H * W <= 65,535 pixels (uint16 labels,
+    0xFFFF is background) in at most 9,216 chunks of 8 pixels (rows padded
+    to 8, 9 chunks a thread); everything else goes to the general kernel."""
+    assert cc_label.ccl_path(H, W) == path
+    if path == "shared":
+        assert cc_label.shared_bytes(H, W) <= cc_label.SHARED_MEMORY_LIMIT
+        assert cc_label.shared_bytes(H, W) == H * ((W + 7) // 8) * 16
+
+
+def test_the_lanes_grids_take_the_shared_path():
+    from ocrjax_torch.config import OcrConfig
+    cfg = OcrConfig()
+    side = cfg.det_max_side // cfg.det_cc_downsample
+    assert cc_label.ccl_path(side, side) == "shared"
+    assert cc_label.shared_bytes(240, 240) == 115200
+
+
+def test_cuda_wrapper_checks_its_arguments_before_any_launch():
+    bm = torch.zeros((1, 8, 8), dtype=torch.bool)
+    for kwargs in ({}, {"path": "shared"}, {"path": "global"}):
+        with pytest.raises(ValueError):                    # a CPU tensor
+            cc_label.label_components_cuda(bm, 4, **kwargs)
+    assert cc_label.label_components_cuda.launches_by_path.keys() \
+        == set(cc_label.PATHS)
+    assert sum(cc_label.label_components_cuda.launches_by_path.values()) \
+        == cc_label.label_components_cuda.launches

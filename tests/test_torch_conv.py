@@ -157,3 +157,137 @@ def test_bench_runs_on_the_cpu_and_needs_cuda_otherwise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             bench_conv.run(shapes=shapes, reps=1)
+
+
+@pytest.mark.parametrize("shape", bench_conv.SHAPES, ids=lambda s: s[0])
+def test_every_production_shape_takes_its_fast_path(shape):
+    _, B, H, W, cin, cout = shape
+    path = conv_fused.conv_path(B, H, W, cin, cout)
+    assert path == ("wgmma" if cin >= 64 else "small_cin")
+    # a pointer off a 16-byte boundary sends any shape to the general kernel
+    assert conv_fused.conv_path(B, H, W, cin, cout, aligned=False) \
+        == "generic"
+
+
+@pytest.mark.parametrize("shape,path", [
+    ((1, 7, 13, 3, 5), "generic"), ((1, 1, 1, 3, 5), "generic"),
+    ((2, 9, 33, 17, 70), "generic"), ((1, 8, 8, 8, 12), "generic"),
+    ((1, 8, 8, 12, 8), "generic"), ((2, 9, 33, 8, 8), "wgmma"),
+    ((1, 8, 8, 4, 8), "small_cin"), ((1, 8, 8, 1, 64), "small_cin"),
+    ((1, 8, 8, 4, 512), "generic"), ((1, 8, 8, 5, 8), "generic")])
+def test_path_choice_on_edge_shapes(shape, path):
+    """Cin <= 4 with Cout % 8 == 0 and its weights within 48 KB of shared
+    memory is the small-Cin path; Cin % 8 == 0 and Cout % 8 == 0 is wgmma;
+    ragged channels are the general kernel's."""
+    assert conv_fused.conv_path(*shape) == path
+
+
+# label -> (th, tw, bn, images a block, padded pixels of one image)
+PLANS = {"db.res1 960/4": (8, 16, 64, 1, 57600),
+         "db.res2 960/8": (8, 16, 128, 2, 15360),
+         "db.res3 960/16": (4, 32, 128, 2, 3840),
+         "db.res4 960/32": (8, 16, 128, 2, 1024),
+         "db.fpn.smooth": (8, 16, 24, 1, 57600),
+         "db.head.conv": (8, 16, 24, 1, 57600),
+         "crnn.conv1": (8, 16, 128, 2, 2560),
+         "crnn.conv2": (8, 16, 128, 2, 640),
+         "crnn.conv3": (8, 16, 128, 2, 640),
+         "crnn.conv4": (4, 16, 128, 4, 320),
+         "crnn.conv5": (4, 16, 128, 4, 320)}
+
+
+@pytest.mark.parametrize("shape", [s for s in bench_conv.SHAPES
+                                   if s[0] in PLANS], ids=lambda s: s[0])
+def test_tile_plan_of_every_wgmma_production_shape(shape):
+    label, B, H, W, cin, cout = shape
+    for itemsize in (2, 4):
+        plan = conv_fused.conv_plan(B, H, W, cin, cout, itemsize)
+        assert (plan["th"], plan["tw"], plan["bn"], plan["images"],
+                plan["padded_pixels"]) == PLANS[label]
+        # a block takes 128 pixels, or 256 at the wide Cout tile
+        assert plan["images"] * plan["th"] * plan["tw"] \
+            == (256 if plan["bn"] == 128 else 128)
+        # a short map fills its tiles: the CRNN's 4 x 80 maps take 4 x 16
+        # patches of four images and pad nothing; 30 x 30 pads the most
+        assert plan["padded_pixels"] <= 1.14 * H * W
+        assert 2 <= plan["stages"] <= conv_fused.WGMMA_MAX_STAGES
+        assert plan["smem_bytes"] <= conv_fused.SHARED_MEMORY_LIMIT
+        assert plan["stage_bytes"] % 512 == 0      # the swizzle's period
+        # narrow Cout tiles leave room for a second block on the SM
+        assert plan["blocks_per_sm"] == (2 if plan["bn"] <= 64 else 1)
+        assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) \
+            <= conv_fused.SHARED_MEMORY_LIMIT
+        # 8 consumer warps stage 16 pixel rows x up to 64 channels each
+        assert plan["staging_bytes"] \
+            == 128 * (min(plan["bn"], 64) * itemsize + 16)
+        assert plan["smem_bytes"] == 1024 + 16 * conv_fused.WGMMA_MAX_STAGES \
+            + plan["staging_bytes"] + plan["stages"] * plan["stage_bytes"]
+        assert plan["cin_pad"] % conv_fused.WGMMA_CHUNK == 0 \
+            and 0 <= plan["cin_pad"] - cin < conv_fused.WGMMA_CHUNK
+        assert plan["cout_pad"] % plan["bn"] == 0 \
+            and 0 <= plan["cout_pad"] - cout < plan["bn"]
+        assert plan["tiles"] == -(-B // plan["images"]) \
+            * (plan["padded_pixels"] // (plan["th"] * plan["tw"])) \
+            * (plan["cout_pad"] // plan["bn"])
+
+
+@pytest.mark.parametrize("B,H,W,cout,tile,images", [
+    (1, 2, 200, 64, (2, 64), 1), (1, 4, 80, 64, (4, 32), 1),
+    (2, 4, 80, 64, (4, 16), 2), (1, 8, 80, 64, (8, 16), 1),
+    (1, 1, 1, 64, (8, 16), 1), (1, 3, 64, 64, (4, 32), 1),
+    (16, 240, 240, 64, (8, 16), 1), (256, 4, 80, 512, (4, 16), 4),
+    (3, 4, 80, 256, (4, 16), 4), (2, 4, 80, 256, (4, 32), 2),
+    (1, 4, 80, 256, (4, 32), 1)])
+def test_tile_plan_picks_the_patch_that_computes_least(B, H, W, cout, tile,
+                                                       images):
+    """Padded pixels times the images a block takes, idle ones included: a
+    4 x 16 patch pads a 4 x 80 map least, but it spreads a block over twice
+    as many images, which a batch of one or two does not fill."""
+    plan = conv_fused.conv_plan(B, H, W, 64, cout)
+    assert (plan["th"], plan["tw"]) == tile and plan["images"] == images
+    pixels = plan["images"] * plan["th"] * plan["tw"]
+
+    def work(th, tw):
+        per_block = pixels // (th * tw)
+        return -(-B // per_block) * per_block \
+            * (-(-H // th) * th) * (-(-W // tw) * tw)
+    assert work(*tile) == min(work(*t) for t in conv_fused.WGMMA_TILES)
+
+
+@pytest.mark.parametrize("B,cout,images", [
+    (16, 512, 2), (1, 512, 1), (16, 64, 1), (3, 128, 2), (2, 136, 2),
+    (16, 24, 1)])
+def test_tile_plan_takes_two_images_a_block_only_at_the_wide_cout_tile(
+        B, cout, images):
+    plan = conv_fused.conv_plan(B, 8, 80, 256, cout, 2)
+    assert plan["images"] == images
+    assert plan["smem_bytes"] <= conv_fused.SHARED_MEMORY_LIMIT
+    assert plan["stages"] >= 2
+
+
+@pytest.mark.parametrize("cin,cout,cin_pad,cout_pad", [
+    (64, 64, 64, 64), (96, 24, 96, 24), (8, 8, 32, 24), (5, 7, 32, 64)])
+def test_pack_weights_torch_against_the_index_formula(cin, cout, cin_pad,
+                                                      cout_pad):
+    w = np.random.RandomState(5).randn(3, 3, cin, cout).astype(np.float32)
+    got = conv_fused.pack_weights_torch(torch.from_numpy(w), cin_pad,
+                                        cout_pad)
+    assert got.dtype == torch.bfloat16 \
+        and tuple(got.shape) == (9, cout_pad, cin_pad)
+    want = np.zeros((9, cout_pad, cin_pad), np.float32)
+    rounded = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+    for tap in range(9):
+        for n in range(cout):
+            for c in range(cin):
+                want[tap, n, c] = rounded[tap // 3, tap % 3, c, n]
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+def test_cuda_wrapper_refuses_an_unknown_path_and_cpu_tensors():
+    x, w, s, b = (torch.from_numpy(a) for a in _inputs(SHAPES[0]))
+    for path in (None, "wgmma", "generic", "cudnn"):
+        with pytest.raises(ValueError):
+            conv_fused.conv3x3_bn_relu_cuda(x, w, s, b, path=path)
+    counter = conv_fused.conv3x3_bn_relu_cuda
+    assert set(counter.launches_by_path) == set(conv_fused.PATHS)
+    assert sum(counter.launches_by_path.values()) == counter.launches

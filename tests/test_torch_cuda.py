@@ -41,6 +41,49 @@ def test_kernel_bit_exact(cuda, shape, density, n_iters):
     assert torch.equal(got, cc_label.label_components_torch(bm, n_iters))
 
 
+# the edges of the shared-memory path: the lanes' grids, the most pixels a
+# uint16 label can index (255 x 257 = 65,535), one pixel more than that
+# (256 x 256), a width that is no multiple of 8, rows wider than a warp's
+# 256 pixels, one pixel, no sweep at all
+@pytest.mark.parametrize("shape,density,n_iters,path", [
+    ((16, 240, 240), 0.5, 4, "shared"), ((2, 128, 128), 0.5, 4, "shared"),
+    ((1, 255, 257), 0.5, 4, "shared"), ((1, 256, 256), 0.5, 4, "global"),
+    ((3, 37, 70), 0.3, 5, "shared"), ((1, 3, 1000), 0.2, 6, "shared"),
+    ((1, 1, 1), 0.0, 4, "shared"), ((2, 64, 64), 0.6, 0, "shared"),
+    ((4, 512, 512), 0.5, 4, "global")])
+def test_kernel_bit_exact_on_the_path_it_picks(cuda, shape, density, n_iters,
+                                               path):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    bm = torch.rand(shape, generator=g, device=cuda) > density
+    want = cc_label.label_components_torch(bm, n_iters)
+    counter = cc_label.label_components_cuda
+    before = dict(counter.launches_by_path)
+    got = cc_label.label_components(bm, n_iters)
+    torch.cuda.synchronize()
+    other = "global" if path == "shared" else "shared"
+    assert counter.launches_by_path[path] == before[path] + 1
+    assert counter.launches_by_path[other] == before[other]
+    assert torch.equal(got, want)
+    # the general path takes every grid; the shared path only what fits
+    forced = counter(bm, n_iters, path="global")
+    torch.cuda.synchronize()
+    assert counter.launches_by_path["global"] == before["global"] + 1 \
+        + (path == "global")
+    assert torch.equal(forced, want)
+    if path == "global":
+        with pytest.raises(ValueError):
+            counter(bm, n_iters, path="shared")
+
+
+def test_kernel_takes_uint8_and_bool_bitmaps_alike(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    bm = torch.rand((2, 40, 48), generator=g, device=cuda) > 0.5
+    want = cc_label.label_components_torch(bm, 4)
+    for same in (bm, bm.to(torch.uint8) * 7, bm.transpose(1, 2).contiguous()
+                 .transpose(1, 2)):
+        assert torch.equal(cc_label.label_components_cuda(same, 4), want)
+
+
 def test_kernel_rejects_unbatched_input(cuda):
     with pytest.raises(ValueError):
         cc_label.label_components_cuda(torch.ones((8, 8), device=cuda), 4)
@@ -62,6 +105,26 @@ CONV_SHAPES = [(2, 8, 16, 1, 64), (1, 12, 20, 96, 24), (1, 7, 13, 3, 5),
                (1, 1, 1, 3, 5), (2, 9, 33, 17, 70), (16, 30, 30, 512, 512)]
 
 
+def _conv_inputs(shape, dtype, device):
+    B, H, W, cin, cout = shape
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(B, H, W, cin).astype(np.float32)).to(
+        device=device, dtype=dtype)
+    w = torch.from_numpy(
+        rng.randn(3, 3, cin, cout).astype(np.float32) * 0.05).to(device)
+    scale = torch.from_numpy(
+        rng.rand(cout).astype(np.float32) + 0.5).to(device)
+    bias = torch.from_numpy(
+        rng.randn(cout).astype(np.float32) * 0.1).to(device)
+    return x, w, scale, bias
+
+
+def _assert_conv_close(got, want, dtype):
+    rtol, atol = (5e-5, 5e-4) if dtype == torch.float32 else (2 ** -7, 5e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv_kernel_matches_plain_version(cuda, shape, dtype):
@@ -69,22 +132,83 @@ def test_conv_kernel_matches_plain_version(cuda, shape, dtype):
     (the same exact products summed in float32 in another order), bf16
     outputs within one bf16 step."""
     B, H, W, cin, cout = shape
-    rng = np.random.RandomState(0)
-    x = torch.from_numpy(rng.rand(B, H, W, cin).astype(np.float32)).to(
-        device=cuda, dtype=dtype)
-    w = torch.from_numpy(
-        rng.randn(3, 3, cin, cout).astype(np.float32) * 0.05).to(cuda)
-    scale = torch.from_numpy(rng.rand(cout).astype(np.float32) + 0.5).to(cuda)
-    bias = torch.from_numpy(rng.randn(cout).astype(np.float32) * 0.1).to(cuda)
+    x, w, scale, bias = _conv_inputs(shape, dtype, cuda)
     before = conv_fused.conv3x3_bn_relu_cuda.launches
     got = conv_fused.conv3x3_bn_relu(x, w, scale, bias)
     torch.cuda.synchronize()
     assert conv_fused.conv3x3_bn_relu_cuda.launches == before + 1
     assert got.dtype == dtype and got.shape == (B, H, W, cout)
     want = conv_fused.conv_bn_relu_torch(x, w, scale, bias)
-    rtol, atol = (5e-5, 5e-4) if dtype == torch.float32 else (2 ** -7, 5e-4)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
+    _assert_conv_close(got, want, dtype)
+
+
+# B, H, W, Cin, Cout and the path the wrapper must pick: wgmma with an n24
+# Cout tile and a ragged second Cin chunk (96), on a short 4 x 80 map with
+# two Cout tiles (4 x 16 patches of four images, the batch of 3 leaving one
+# idle), with one half-filled k16 step (Cin 8), with float32 x, on a 2 x 64
+# patch, on 4 x 16 patches of two images at the 64-wide Cout tile and of
+# four at the 128-wide one with float32 x; Cin 1 and Cin 4 on the small-Cin
+# path; ragged channels on the general path
+CONV_PATH_CASES = [
+    ((1, 12, 20, 96, 24), torch.bfloat16, "wgmma"),
+    ((3, 4, 80, 128, 256), torch.bfloat16, "wgmma"),
+    ((2, 9, 33, 8, 8), torch.bfloat16, "wgmma"),
+    ((2, 30, 30, 64, 64), torch.float32, "wgmma"),
+    ((1, 2, 100, 64, 136), torch.bfloat16, "wgmma"),
+    ((2, 4, 80, 64, 64), torch.bfloat16, "wgmma"),
+    ((7, 4, 80, 128, 136), torch.float32, "wgmma"),
+    ((2, 8, 16, 1, 64), torch.bfloat16, "small_cin"),
+    ((2, 7, 13, 4, 16), torch.float32, "small_cin"),
+    ((1, 7, 13, 3, 5), torch.bfloat16, "generic"),
+    ((2, 9, 33, 17, 70), torch.float32, "generic"),
+    ((1, 8, 8, 8, 12), torch.bfloat16, "generic")]
+
+
+@pytest.mark.parametrize("shape,dtype,path", CONV_PATH_CASES)
+def test_conv_kernel_path_and_forced_general_path(cuda, shape, dtype, path):
+    x, w, scale, bias = _conv_inputs(shape, dtype, cuda)
+    counter = conv_fused.conv3x3_bn_relu_cuda
+    before = dict(counter.launches_by_path)
+    got = conv_fused.conv3x3_bn_relu(x, w, scale, bias)
+    torch.cuda.synchronize()
+    after = dict(counter.launches_by_path)
+    assert {k: after[k] - before[k] for k in after} \
+        == {k: int(k == path) for k in after}
+    want = conv_fused.conv_bn_relu_torch(x, w, scale, bias)
+    _assert_conv_close(got, want, dtype)
+    forced = counter(x, w, scale, bias, path="generic")
+    torch.cuda.synchronize()
+    assert counter.launches_by_path["generic"] == after["generic"] + 1
+    _assert_conv_close(forced, want, dtype)
+    for other in ("wgmma", "small_cin"):
+        if other != path:
+            with pytest.raises(ValueError):
+                counter(x, w, scale, bias, path=other)
+
+
+def test_unaligned_x_goes_to_the_general_path(cuda):
+    x, w, scale, bias = _conv_inputs((1, 8, 16, 64, 64), torch.bfloat16,
+                                     cuda)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=cuda)
+    flat[1:] = x.reshape(-1)
+    shifted = flat[1:].view(x.shape)          # 2 bytes off a 16-byte boundary
+    counter = conv_fused.conv3x3_bn_relu_cuda
+    before = dict(counter.launches_by_path)
+    got = counter(shifted, w, scale, bias)
+    torch.cuda.synchronize()
+    assert counter.launches_by_path["generic"] == before["generic"] + 1
+    assert torch.equal(got, counter(x, w, scale, bias, path="generic"))
+
+
+@pytest.mark.parametrize("cin,cout", [(64, 64), (96, 24), (8, 8), (40, 136)])
+def test_pack_weights_kernel_bit_equal_to_plain_version(cuda, cin, cout):
+    plan = conv_fused.conv_plan(1, 8, 16, cin, cout)
+    w = torch.from_numpy(np.random.RandomState(3).randn(
+        3, 3, cin, cout).astype(np.float32)).to(cuda)
+    got = conv_fused.pack_weights_cuda(w, plan["cin_pad"], plan["cout_pad"])
+    want = conv_fused.pack_weights_torch(w, plan["cin_pad"],
+                                         plan["cout_pad"])
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def test_conv_kernel_rejects_what_it_does_not_take(cuda):
