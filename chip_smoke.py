@@ -37,15 +37,38 @@ Phases, in order; any failure exits non-zero:
      every reroute firing, ocr_batch(fused=False), ocr() and detect() on the
      oversize page, recognize_strips(), held to the JAX engine's float32
      outputs at the same bar;
-  6. the same lanes in bfloat16 with device time per stage.
-Each kernel must be launched in the phases that run it (cc_label: 2, 3 and
-5; conv_fused: 4); the counts are set to 0 just before such a phase and
-read just after, in all and by path. The last lines are the kernels' JSON
-record, the card's name and power limit, and {"ok": true, "device": ...}.
+  6. the same lanes in bfloat16 with device time per stage;
+  7. beam CTC in float32: the fused lane (the 16 pages of phase 2), the
+     bucketed lane on the mixed batch and recognize_strips with beam=True,
+     held to the JAX engine's float32 beam outputs at the same bar; then,
+     in bfloat16, the `ctc` stage's device ms of beam beside greedy's;
+  8. orientation (rec_try_flip) in float32 on the flip fixture (an
+     upright, a 180-degree and a 90-degree rotated page at 960): ocr() on
+     each page, ocr_batch(fused=True) and ocr_batch(fused=False), held to
+     the JAX try-flip engine's outputs; then, in bfloat16, the `cls` stage;
+  9. C5 at full width: ocr_tiled_batch on two A4 pages at 300 dpi (dense,
+     sparse, dense) and detect_tiled on the dense one, shipped tile settings
+     (2048-pixel tiles, the tile detector, 384 candidates a tile), float32,
+     held to the JAX engine's outputs: strings, order, truncation and scores
+     to its float32 run, boxes within 0.011 px of the reference evaluated
+     with exact moment sums (as the port sums them; at 2048-pixel tiles the
+     reference's float32 sums move its own boxes by up to the recorded
+     reference_moment_error_px) and within that error + 0.011 px of its
+     float32 run; every cc_label launch of the phase
+     must take the general ("global") path, as every C5 grid is past 65,535
+     pixels. Then, in bfloat16: pages/s, device ms per stage, host ms of the
+     host stages, K1's ms per window, and the peak device memory.
+Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5
+and 7-9; conv_fused: 4); the counts are set to 0 just before such a phase
+and read just after, in all and by path; the lane phases 2, 3 and 5-8 must
+label on the shared path only, phase 9 on the global path only. The last
+lines are the kernels' JSON record, the card's name and power limit, and
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import glob
 import json
@@ -313,6 +336,17 @@ def no_global_ccl(phase: str) -> dict:
     return by_path
 
 
+def only_global_ccl(phase: str) -> dict:
+    """The tiled lane labels grids of 98,304 to 262,144 pixels: fails if
+    one of them went to the shared path, or none was labeled."""
+    from ocrjax_torch.ops.cc_label import label_components_cuda
+    by_path = dict(label_components_cuda.launches_by_path)
+    if by_path["shared"] or not by_path["global"]:
+        fail(f"phase '{phase}': cc_label launches by path {by_path}; the C5 "
+             f"tile grids belong on the general path")
+    return by_path
+
+
 def phase_kernels():
     """cc_label kernels vs label_components_torch on the card."""
     import torch
@@ -461,14 +495,14 @@ def phase_fp32(pages, expected, counters):
     results = eng.ocr_batch(pages, fused=True)
     single = eng.ocr(pages[0])
     launches = read(counters, "fused float32", ["label_components_cuda"])
-    no_global_ccl("fused float32")
+    by_path = no_global_ccl("fused float32")
     worst = max(check_against(results, expected),
                 check_against([single], expected[:1]))
     n_lines = sum(len(r.lines) for r in results)
     print(f"  fp32: {len(pages)} pages ({n_lines} lines) + ocr() match the "
           f"JAX float32 outputs, max box diff {worst:.5f} px; "
           f"launches {launches}")
-    return eng, results
+    return eng, results, by_path
 
 
 def phase_bf16(pages, fp32_results, counters, reps: int = 3):
@@ -534,8 +568,7 @@ def phase_lanes_fp32(eng, fixture, counters):
     recs = eng.recognize_strips(strips)
     launches = read(counters, "staged lanes float32",
                     ["label_components_cuda"])
-    from ocrjax_torch.ops.cc_label import label_components_cuda
-    by_path = dict(label_components_cuda.launches_by_path)
+    by_path = no_global_ccl("staged lanes float32")
     worst = max(
         check_against(fused, want["fused_batch"], "fused batch page"),
         check_against(bucketed, want["bucketed_batch"], "bucketed page"),
@@ -559,7 +592,7 @@ def phase_lanes_fp32(eng, fixture, counters):
           f"the JAX float32 outputs, max box diff {worst:.5f} px, strip "
           f"confidence diff {dconf:.2e}; launches {launches}, cc_label by "
           f"path {by_path}")
-    return fused, bucketed
+    return (fused, bucketed), by_path
 
 
 def phase_lanes_bf16(eng, fixture, fp32_results):
@@ -607,6 +640,270 @@ def phase_lanes_bf16(eng, fixture, fp32_results):
              f"{BF16_AGREE_MIN}")
 
 
+def load_json(name: str):
+    with open(os.path.join(TESTDATA, name)) as f:
+        return json.load(f)
+
+
+def phase_beam_fp32(eng, pages, lane_fixture, counters) -> dict:
+    """beam=True on the fused lane, the bucketed lane and recognize_strips,
+    float32, against the JAX beam outputs."""
+    import numpy as np
+    want = load_json("expected_jax_beam_fp32_960.json")
+    batch, strips, _, _ = lane_fixture
+    reset(counters)
+    fused = eng.ocr_batch(pages, fused=True, beam=True)
+    bucketed = eng.ocr_batch(batch, fused=False, beam=True)
+    recs = eng.recognize_strips(strips, beam=True)
+    launches = read(counters, "beam float32", ["label_components_cuda"])
+    by_path = no_global_ccl("beam float32")
+    worst = max(
+        check_against(fused, [e for e in want["fused"] for _ in range(4)],
+                      "beam fused page"),
+        check_against(bucketed, want["bucketed_batch"], "beam bucketed page"))
+    got = [r.text for r in recs]
+    if got != want["strips"]["strings"]:
+        fail(f"recognize_strips(beam=True): {got} != JAX float32 "
+             f"{want['strips']['strings']}")
+    dconf = float(np.abs(np.array([r.confidence for r in recs])
+                         - np.array(want["strips"]["conf"])).max())
+    if dconf > SCORE_TOL:
+        fail(f"recognize_strips(beam=True): confidence differs by {dconf}")
+    n_lines = sum(len(r.lines) for r in fused + bucketed)
+    print(f"  beam fp32: fused lane ({len(pages)} pages), bucketed lane "
+          f"({len(batch)} pages), {len(recs)} strips: {n_lines} lines match "
+          f"the JAX float32 beam outputs, max box diff {worst:.5f} px, strip "
+          f"confidence diff {dconf:.2e}; launches {launches}")
+    return by_path
+
+
+def phase_beam_bf16(eng, pages) -> dict:
+    """Device ms of the `ctc` stage, beam beside greedy, on one 16-page
+    chunk of the fused lane in bfloat16."""
+    from ocrjax_torch.utils.profiling import StageTimer
+    out = {}
+    for beam in (False, True):
+        eng.ocr_batch(pages, fused=True, beam=beam)        # warm-up
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        with timer.active():
+            eng.ocr_batch(pages, fused=True, beam=beam)
+        stages = timer.report()
+        wall = (time.perf_counter() - t0) * 1e3
+        name = "beam" if beam else "greedy"
+        out[name] = stages
+        print(f"  bf16 fused lane, {name}: wall {wall:.1f} ms (host clock), "
+              f"device ms " + json.dumps({k: round(v, 4)
+                                          for k, v in stages.items()}))
+    ratio = out["beam"]["ctc"] / out["greedy"]["ctc"]
+    print(f"  bf16 ctc stage per 16-page chunk: beam {out['beam']['ctc']:.4f}"
+          f" ms, greedy {out['greedy']['ctc']:.4f} ms ({ratio:.1f}x); beam's "
+          f"share of the chunk's device stages "
+          f"{out['beam']['ctc'] / sum(v for k, v in out['beam'].items() if k != 'ccl'):.3f}")
+    return {"ctc_beam_ms": out["beam"]["ctc"],
+            "ctc_greedy_ms": out["greedy"]["ctc"]}
+
+
+def load_flip_fixture():
+    import numpy as np
+    flip = np.load(os.path.join(TESTDATA, "flip_960.npz"))
+    want = load_json("expected_jax_flip_fp32_960.json")
+    return [flip[k] for k in want["pages"]], want
+
+
+def phase_flip_fp32(counters) -> dict:
+    """The try-flip engine on the flip fixture, float32, against JAX."""
+    from ocrjax_torch.api import OcrEngine, asset_config
+    batch, want = load_flip_fixture()
+    eng = OcrEngine.from_pretrained(config=asset_config(
+        compute_dtype="float32", rec_try_flip=True))
+    reset(counters)
+    singles = [eng.ocr(p) for p in batch]
+    fused = eng.ocr_batch(batch, fused=True)
+    bucketed = eng.ocr_batch(batch, fused=False)
+    launches = read(counters, "orientation float32",
+                    ["label_components_cuda"])
+    by_path = no_global_ccl("orientation float32")
+    worst = max(check_against(singles, want["ocr"], "flip ocr() page"),
+                check_against(fused, want["fused_batch"], "flip fused page"),
+                check_against(bucketed, want["bucketed_batch"],
+                              "flip bucketed page"))
+    n_lines = sum(len(r.lines) for r in singles + fused + bucketed)
+    print(f"  flip fp32: ocr() on {want['pages']}, ocr_batch fused and "
+          f"bucketed: {n_lines} lines match the JAX try-flip outputs "
+          f"(order reversed on the upside-down page, the landscape page "
+          f"redone rotated), max box diff {worst:.5f} px; launches "
+          f"{launches}")
+    return by_path
+
+
+def phase_flip_bf16() -> dict:
+    """Device ms per stage, the orientation stage `cls` among them, of the
+    try-flip engine in bfloat16."""
+    from ocrjax_torch.api import OcrEngine, asset_config
+    from ocrjax_torch.utils.profiling import StageTimer
+    batch, _ = load_flip_fixture()
+    eng = OcrEngine.from_pretrained(config=asset_config(rec_try_flip=True))
+    out = {}
+    for name, fused in (("ocr_batch(fused=True)", True),
+                        ("ocr_batch(fused=False)", False)):
+        eng.ocr_batch(batch, fused=fused)                  # warm-up
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        with timer.active():
+            eng.ocr_batch(batch, fused=fused)
+        stages = timer.report()
+        wall = (time.perf_counter() - t0) * 1e3
+        out[name] = stages
+        print(f"  bf16 try-flip {name} (3 pages): wall {wall:.1f} ms (host "
+              f"clock), device ms " + json.dumps(
+                  {k: round(v, 4) for k, v in stages.items()}))
+    return {k: v.get("cls") for k, v in out.items()}
+
+
+def load_c5_fixture():
+    import numpy as np
+    c5 = np.load(os.path.join(TESTDATA, "c5_pages.npz"))
+    want = load_json("expected_jax_c5_fp32.json")
+    return {k: c5[k] for k in c5.files}, want
+
+
+def phase_c5_fp32(counters) -> tuple:
+    """ocr_tiled_batch and detect_tiled on the A4 pages, float32, against
+    JAX; every CCL launch on the general path."""
+    import numpy as np
+    from ocrjax_torch.api import OcrEngine, asset_config
+    c5, want = load_c5_fixture()
+    eng = OcrEngine.from_pretrained(config=asset_config(
+        compute_dtype="float32"))
+    cfg = eng.config
+    if eng.tile_det_model is None or (
+            cfg.tile_size, cfg.tile_overlap, cfg.tile_max_candidates) != (
+            want["tile_size"], want["tile_overlap"],
+            want["tile_max_candidates"]):
+        fail("the C5 phase needs the tile detector and the shipped tile "
+             "settings")
+    batch = [c5[k] for k in want["batch"]]
+    reset(counters)
+    res = eng.ocr_tiled_batch(batch)
+    det = eng.detect_tiled(c5["dense"])
+    launches = read(counters, "C5 float32", ["label_components_cuda"])
+    by_path = only_global_ccl("C5 float32")
+    # held to the reference evaluated with exact moment sums (the port's
+    # own summation; test_torch_fixture.exact_moments) at the goldens bar,
+    # and to the reference's float32 outputs with the same strings, order,
+    # truncation and scores, boxes within its recorded moment error + bar
+    exact = want["exact_moments"]
+    worst = max(check_against(res, exact["ocr_tiled_batch"], "C5 page"),
+                check_boxes("detect_tiled(dense)", [b.quad for b in det],
+                            [b.score for b in det],
+                            exact["detect_tiled_dense"]))
+    gap_bar = want["reference_moment_error_px"] + BOX_TOL
+    gap = 0.0
+    pairs = [(f"C5 page {i}", [line.box for line in r.lines], w)
+             for i, (r, w) in enumerate(zip(res, want["ocr_tiled_batch"]))]
+    pairs.append(("detect_tiled(dense)", det, want["detect_tiled_dense"]))
+    for i, (r, w) in enumerate(zip(res, want["ocr_tiled_batch"])):
+        if [line.text for line in r.lines] != w["strings"]:
+            fail(f"C5 page {i}: strings differ from the JAX float32 run's")
+        if r.truncated != w["truncated"]:
+            fail(f"C5 page {i}: truncated {r.truncated} != JAX "
+                 f"{w['truncated']}")
+    for tag, boxes, w in pairs:
+        if len(boxes) != len(w["boxes"]):
+            fail(f"{tag}: {len(boxes)} boxes != JAX float32 "
+                 f"{len(w['boxes'])}")
+        gap = max(gap, float(np.abs(np.array([b.quad for b in boxes])
+                                    - np.array(w["boxes"])).max()))
+        ds = float(np.abs(np.array([b.score for b in boxes])
+                          - np.array(w["scores"])).max())
+        if ds > SCORE_TOL:
+            fail(f"{tag}: score diff {ds} beyond {SCORE_TOL}")
+    if gap > gap_bar:
+        fail(f"C5: boxes {gap} px from the JAX float32 run's, beyond its "
+             f"own moment error + bar {gap_bar}")
+    print(f"  C5 fp32: {want['batch']} ({[len(r.lines) for r in res]} "
+          f"lines) and detect_tiled(dense) ({len(det)} boxes): strings, "
+          f"order, truncation and scores equal the JAX float32 run's; boxes "
+          f"within {worst:.5f} px of the reference with exact moment sums "
+          f"and {gap:.5f} px of its float32 run (whose own moment error is "
+          f"{want['reference_moment_error_px']:.5f} px); launches "
+          f"{launches}, cc_label by path {by_path}")
+    return by_path, res
+
+
+def phase_c5_bf16(counters, fp32_results, reps: int = 2) -> tuple:
+    """C5 in bfloat16: pages/s, device and host ms per stage, K1's ms per
+    window, the peak device memory."""
+    import torch
+    from ocrjax_torch.api import OcrEngine
+    from ocrjax_torch.utils.profiling import StageTimer
+    c5, want = load_c5_fixture()
+    batch = [c5[k] for k in want["batch"]]
+    eng = OcrEngine.from_pretrained()
+    eng.ocr_tiled_batch(batch)                             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = eng.ocr_tiled_batch(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters, "C5 bfloat16", ["label_components_cuda"])
+    by_path = only_global_ccl("C5 bfloat16")
+    peak = torch.cuda.max_memory_allocated()
+    timer = StageTimer()
+    with timer.active():
+        eng.ocr_tiled_batch(batch)
+    dev = timer.report()
+    host = timer.host_report()
+    windows = len(timer.events["tile_det_fetch"])
+    n_ccl = len(timer.events["ccl"])
+    # strings matched as multisets per page: one line more or less in
+    # bf16 shifts every later line of a 200-line page out of step
+    same = total = 0
+    for r, w in zip(res, fp32_results):
+        a = collections.Counter(line.text for line in r.lines)
+        b = collections.Counter(line.text for line in w.lines)
+        same += sum((a & b).values())
+        total += sum(b.values())
+    pages_s = len(batch) * reps / wall
+    print(f"  C5 bf16: {pages_s:.3f} pages/s ({reps} x {len(batch)} A4 "
+          f"pages, host clock, {wall:.3f} s); peak device memory "
+          f"{peak / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
+    print("  C5 bf16 device ms per 3-page batch: "
+          + json.dumps({k: round(v, 4) for k, v in dev.items()}))
+    print("  C5 bf16 host ms per 3-page batch: "
+          + json.dumps({k: round(host[k], 3) for k in (
+              "tile_prep", "tile_seam_merge", "tile_det_fetch")}))
+    # K1's bound for the grids this batch labels: every kept tile of the
+    # three pages, OR-pooled 4x; bitmap in and int32 labels out, 13
+    # operations a pixel and sweep (as in phase 1)
+    from ocrjax_torch import preprocess, tiling
+    px = sum(th * tw // eng.config.det_cc_downsample ** 2
+             for img in batch
+             for (_, _, th, tw) in tiling._prep_page(
+                 eng, preprocess.load_image(img))[0])
+    bound_ms = max(px * 5 / HBM_BYTES_PER_S,
+                   px * 4 * 13 / SIMT_OPS_PER_S) * 1e3
+    print(f"  C5 K1 (general path): {dev['ccl']:.4f} ms over {n_ccl} "
+          f"launches in {windows} windows: {dev['ccl'] / windows:.4f} ms a "
+          f"window, {dev['ccl'] / n_ccl:.4f} ms a launch; bound for the "
+          f"batch's {px} grid pixels {bound_ms * 1e3:.3f} us (bytes); "
+          f"launches {launches}")
+    print(f"  C5 bf16: {same}/{total} fp32 strings read the same in bf16 "
+          f"(lines a page, bf16 / fp32: "
+          f"{[(len(r.lines), len(w.lines)) for r, w in zip(res, fp32_results)]})")
+    if same < BF16_AGREE_MIN * total:
+        fail(f"C5 bf16 strings agree with fp32 on {same}/{total}")
+    return by_path, {"c5_ccl_ms": dev["ccl"], "c5_ccl_bound_ms": bound_ms,
+                     "c5_ccl_ms_per_window": dev["ccl"] / windows,
+                     "c5_ccl_ms_per_launch": dev["ccl"] / n_ccl,
+                     "c5_windows": windows, "c5_pages_s": pages_s,
+                     "c5_peak_mib": peak / 2**20}
+
+
 def main() -> int:
     try:
         import torch
@@ -634,18 +931,32 @@ def main() -> int:
     conv_err = phase_conv_kernel()
     print("== 2. fused lane, float32")
     pages, expected = load_fixture()
-    eng32, fp32 = phase_fp32(pages, expected, counters)
+    ccl_phases = {}
+    eng32, fp32, ccl_phases["2"] = phase_fp32(pages, expected, counters)
     print("== 3. fused lane, bfloat16")
-    eng16, launches, ccl_by_path = phase_bf16(pages, fp32, counters)
+    eng16, _, ccl_phases["3"] = phase_bf16(pages, fp32, counters)
     print("== 4. conv bench")
     conv = phase_conv_bench(counters, conv_err)
     print("== 5. staged and rerouted lanes, float32")
     fixture = load_lane_fixture()
-    lanes32 = phase_lanes_fp32(eng32, fixture, counters)
+    lanes32, ccl_phases["5"] = phase_lanes_fp32(eng32, fixture, counters)
     print("== 6. staged and rerouted lanes, bfloat16")
     phase_lanes_bf16(eng16, fixture, lanes32)
-    kernels = [{**ccl, "launches": launches["label_components_cuda"],
-                "launches_by_path": ccl_by_path}, conv]
+    print("== 7. beam CTC")
+    ccl_phases["7"] = phase_beam_fp32(eng32, pages, fixture, counters)
+    beam = phase_beam_bf16(eng16, pages)
+    print("== 8. orientation (rec_try_flip)")
+    ccl_phases["8"] = phase_flip_fp32(counters)
+    cls_ms = phase_flip_bf16()
+    print("== 9. C5 tiled OCR at 2048-pixel tiles")
+    ccl_phases["9"], c5_32 = phase_c5_fp32(counters)
+    ccl_phases["9 bf16"], c5 = phase_c5_bf16(counters, c5_32)
+    print(f"  beam ctc {beam}, cls stage {cls_ms}")
+    by_path = {p: sum(v[p] for v in ccl_phases.values())
+               for p in ("shared", "global")}
+    kernels = [{**ccl, **c5, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "launches_by_phase": ccl_phases}, conv]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

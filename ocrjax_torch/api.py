@@ -1,10 +1,12 @@
 """Public API of the port: OcrEngine and its result types (port of
 ocrjax/api.py): recognize / recognize_strips, detect, ocr and ocr_batch on
-the fused, staged and bucketed lanes, greedy CTC.
+the fused, staged and bucketed lanes, the tiled lanes for high-resolution
+pages (detect_tiled, ocr_tiled, ocr_tiled_batch), greedy or beam CTC, and
+the orientation stage (rec_try_flip).
 
 The engine runs on the card unless the caller asks for the CPU: the default
-device is "cuda", and constructing it without CUDA raises. Options that
-later slices port (beam CTC, rec_try_flip, det_int8, rec_dewarp_curl) raise
+device is "cuda", and constructing it without CUDA raises. The two options
+that a later slice ports, det_int8 and rec_dewarp_curl, raise
 NotImplementedError instead of answering differently from the reference.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import os
 from typing import List, Mapping, Optional, Sequence
 
@@ -87,12 +90,10 @@ def asset_config(path: str = None, metas=None, **overrides) -> OcrConfig:
 
 
 def _refuse_unported(cfg: OcrConfig) -> None:
-    for flag, where in [("rec_try_flip", "orientation"),
-                        ("det_int8", "opt-in paths"),
-                        ("rec_dewarp_curl", "opt-in paths")]:
+    for flag in ("det_int8", "rec_dewarp_curl"):
         if getattr(cfg, flag):
             raise NotImplementedError(
-                f"{flag}=True is not ported yet (ROADMAP.md: {where})")
+                f"{flag}=True is not ported yet (ROADMAP.md: opt-in paths)")
 
 
 def _build(module: torch.nn.Module, sd, seed: int, device) -> torch.nn.Module:
@@ -108,7 +109,9 @@ class OcrEngine:
 
     rec_weights / det_weights / cls_weights: flax-layout {path: array}
     dicts (weights.read_safetensors); None gives random weights from
-    `seed`.
+    `seed`. tile_det_weights with its tile_det_arch (the tile asset's
+    `arch` metadata) builds the dedicated tile detector of the tiled lanes;
+    without it they run the flagship detector.
     """
 
     def __init__(self, config: Optional[OcrConfig] = None,
@@ -116,7 +119,9 @@ class OcrEngine:
                  rec_weights: Optional[Flat] = None,
                  det_weights: Optional[Flat] = None,
                  cls_weights: Optional[Flat] = None,
-                 device: str = "cuda", seed: int = 0):
+                 device: str = "cuda", seed: int = 0,
+                 tile_det_weights: Optional[Flat] = None,
+                 tile_det_arch: Optional[Mapping] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -147,19 +152,43 @@ class OcrEngine:
         self.cls_model = _build(
             create_cls(cfg), cls_weights and W.cls_state_dict(cls_weights)[0],
             seed + 2, self.device)
+        self._cls_trained = cls_weights is not None
+        self._cls_warned = False
+        # set by from_pretrained when the cls asset carries the
+        # antisymmetry certificate: single-pass margins (cls_single_pass)
+        self.cls_antisym = False
+        self.tile_det_arch = tile_det_arch
+        self.tile_det_model = None if tile_det_weights is None else _build(
+            create_db(cfg, tile_det_arch),
+            W.db_state_dict(tile_det_weights, tile_det_arch)[0],
+            seed + 3, self.device)
         self._fused_cache = {}
         self._det = None   # api_det.DetState, built by the staged lanes
+        self._tile_fwd = None   # tiling.TileForward, built by the tiled lanes
+
+    def warn_untrained_cls(self) -> None:
+        """Warns once when rec_try_flip runs on a random orientation
+        classifier (no cls weights were loaded)."""
+        if self._cls_trained or self._cls_warned:
+            return
+        self._cls_warned = True
+        logging.getLogger("ocrjax_torch.api").warning(
+            "rec_try_flip is enabled but no trained orientation classifier "
+            "was loaded (assets/cls.safetensors): flip decisions come from "
+            "random weights")
 
     @classmethod
     def from_pretrained(cls, path: str = None, config: OcrConfig = None,
                         device: str = "cuda", seed: int = 0) -> "OcrEngine":
-        """Loads `<path>/{rec,det,cls}.safetensors` and `rec.charset.txt`
-        (the repo's assets/ by default); a missing file gives random
-        weights for that stage. Without `config`, the `config` metadata of
-        rec and then det builds it."""
+        """Loads `<path>/{rec,det,cls,det_tile}.safetensors` and
+        `rec.charset.txt` (the repo's assets/ by default); a missing file
+        gives random weights for that stage (and no tile detector). Without
+        `config`, the `config` metadata of rec and then det builds it; the
+        tile asset's `arch` metadata describes only its own network and
+        never feeds the config."""
         path = path or ASSETS
         loaded = {}
-        for name in ("rec", "det", "cls"):
+        for name in ("rec", "det", "cls", "det_tile"):
             p = os.path.join(path, f"{name}.safetensors")
             loaded[name] = W.read_safetensors(p) if os.path.exists(p) \
                 else (None, {})
@@ -167,32 +196,38 @@ class OcrEngine:
         charset = Charset.from_file(cs_p) if os.path.exists(cs_p) else None
         if config is None:
             config = asset_config(path, [loaded["rec"][1], loaded["det"][1]])
-        return cls(config=config, charset=charset,
-                   rec_weights=loaded["rec"][0], det_weights=loaded["det"][0],
-                   cls_weights=loaded["cls"][0], device=device, seed=seed)
+        tile_arch = loaded["det_tile"][1].get("arch")
+        eng = cls(config=config, charset=charset,
+                  rec_weights=loaded["rec"][0], det_weights=loaded["det"][0],
+                  cls_weights=loaded["cls"][0], device=device, seed=seed,
+                  tile_det_weights=loaded["det_tile"][0],
+                  tile_det_arch=json.loads(tile_arch) if tile_arch else None)
+        eng.cls_antisym = loaded["cls"][1].get("antisym") == "1"
+        return eng
 
-    @staticmethod
-    def _refuse_beam(beam: bool) -> None:
-        if beam:
-            raise NotImplementedError("beam CTC is not ported yet "
-                                      "(ROADMAP.md: beam CTC)")
-
-    def _rec_step(self, batch_u8: torch.Tensor, widths: torch.Tensor):
-        """normalize -> CRNN -> greedy CTC over a (N, H, W) uint8 batch."""
-        from ocrjax_torch.api_det import rec_strips
+    def _rec_step(self, batch_u8: torch.Tensor, widths: torch.Tensor,
+                  beam: bool = False, seg_ids: torch.Tensor = None):
+        """normalize -> CRNN -> CTC over a (N, H, W) uint8 batch; with
+        seg_ids (rec_try_flip) the orientation stage runs first, seg_ids
+        grouping the strips for its page prior, and the flip decisions come
+        back as a fourth tensor."""
+        from ocrjax_torch.api_det import rec_strips, rec_strips_flip
         cfg = self.config
         with torch.inference_mode():
             x = preprocess.rec_normalize(batch_u8, cfg.rec_mean, cfg.rec_std)
-        return rec_strips(self, x[:, 0], widths)
+        if seg_ids is None:
+            return rec_strips(self, x[:, 0], widths, beam)
+        return rec_strips_flip(self, x[:, 0], widths, seg_ids, beam)
 
     def recognize_strips(self, strips: Sequence[np.ndarray],
-                         beam: bool = False) -> List[RecResult]:
+                         beam: bool = False, same_page: bool = False,
+                         prior_ids: Sequence[int] = None) -> List[RecResult]:
         """Batched recognition of pre-cropped uint8 line strips of any
         size: resized to the rec height on the host, zero-padded to one
-        width bucket and the count bucket, one device call. (The
-        reference's same_page / prior_ids arguments group strips for the
-        orientation stage, which is not ported yet.)"""
-        self._refuse_beam(beam)
+        width bucket and the count bucket, one device call. For
+        rec_try_flip's page prior, same_page=True puts the strips in one
+        group and prior_ids (one int a strip) in one group per id; by
+        default every strip decides alone."""
         if len(strips) == 0:
             return []
         cfg = self.config
@@ -208,10 +243,32 @@ class OcrEngine:
             widths = np.concatenate(
                 [widths, np.full((nb - n,), batch.shape[2], np.int32)])
         from ocrjax_torch.api_det import upload
-        tokens, n_tokens, conf = (t.cpu().numpy() for t in self._rec_step(
-            upload(self, batch), upload(self, widths)))
+        if cfg.rec_try_flip:
+            self.warn_untrained_cls()
+            total = batch.shape[0]    # below n when n passes every bucket
+            if prior_ids is not None:
+                # dense ids, as the page prior's scatter needs; each pad
+                # row votes alone
+                base = np.unique(np.asarray(prior_ids, np.int64),
+                                 return_inverse=True)[1].reshape(-1)
+                seg = np.concatenate([base, base.max(initial=0) + 1
+                                      + np.arange(total - n)])
+            elif same_page:
+                seg = np.concatenate([np.zeros(n, np.int64),
+                                      np.arange(1, total - n + 1)])
+            else:
+                seg = np.arange(total)
+            out = self._rec_step(upload(self, batch), upload(self, widths),
+                                 beam, upload(self, seg.astype(np.int64)))
+        else:
+            out = self._rec_step(upload(self, batch), upload(self, widths),
+                                 beam)
+        tokens, n_tokens, conf = (t.cpu().numpy() for t in out[:3])
+        flipped = out[3].cpu().numpy() if cfg.rec_try_flip \
+            else np.zeros(n, bool)
         return [RecResult(self.charset.decode(tokens[i][: n_tokens[i]]),
-                          float(conf[i])) for i in range(n)]
+                          float(conf[i]), flipped=bool(flipped[i]))
+                for i in range(n)]
 
     def recognize(self, image: ImageLike, beam: bool = False) -> RecResult:
         """One pre-cropped text-line image -> one string."""
@@ -228,18 +285,36 @@ class OcrEngine:
         """One page -> ordered text lines: the fused lane for a page that
         fits the canvas (cfg.ocr_single_fused), else the staged lane with
         full-resolution crops."""
-        self._refuse_beam(beam)
         from ocrjax_torch import api_det
-        return api_det.ocr(self, image)
+        return api_det.ocr(self, image, beam=beam)
 
     def ocr_batch(self, images: Sequence[ImageLike], beam: bool = False,
                   fused: bool = False) -> List[OcrResult]:
         """Batched page OCR: fused=True runs the fused lane (fixed line
         capacity per page, reroutes inside), else the pooled bucketed
         lane."""
-        self._refuse_beam(beam)
         if fused:
             from ocrjax_torch import fused as F
-            return F.ocr_pages_fused(self, images)
+            return F.ocr_pages_fused(self, images, beam=beam)
         from ocrjax_torch import api_det
-        return api_det.ocr_batch(self, images)
+        return api_det.ocr_batch(self, images, beam=beam)
+
+    def detect_tiled(self, image: ImageLike) -> List[DetBox]:
+        """High-resolution page -> boxes in original image coords, reading
+        order: overlapping tiles of cfg.tile_size, seams merged."""
+        from ocrjax_torch import api_det
+        return api_det.detect_tiled(self, image)
+
+    def ocr_tiled(self, image: ImageLike, beam: bool = False) -> OcrResult:
+        """High-resolution page -> ordered text lines: tiled detection and
+        pooled recognition from the uploaded tiles."""
+        from ocrjax_torch import tiling
+        return tiling.ocr_tiled(self, image, beam=beam)
+
+    def ocr_tiled_batch(self, images: Sequence[ImageLike],
+                        beam: bool = False) -> List[OcrResult]:
+        """Many high-resolution pages in windows of tiles, detection of
+        the next window issued before the current one is read; a page that
+        fails to decode yields an empty result."""
+        from ocrjax_torch import tiling
+        return tiling.ocr_tiled_batch(self, images, beam=beam)

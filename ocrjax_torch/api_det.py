@@ -1,23 +1,23 @@
 """The staged detection and end-to-end lanes (port of ocrjax/api_det.py):
-detect, the staged single-page ocr with exact homography crops, and the
-full-resolution lanes for pages that were downscaled onto the canvas.
+detect, the staged single-page ocr with exact homography crops, the
+full-resolution lanes for pages that were downscaled onto the canvas, and
+the orientation stage (rec_try_flip) with the 90-degree redo of landscape
+scans.
 
 Call structure of the staged ocr():
   canvas = host decode onto the fixed S x S luma canvas
   prob, candidates = DetState.forward        (DB forward, extract_boxes)
-  (host: valid boxes, count and width buckets)
+  (host: valid boxes; a page whose boxes read ~90 degrees is redone rotated)
+  (host: count and width buckets)
   strips = warp_quads_refined                (probe, ink refine, re-warp)
-  tokens = rec_strips                        (CRNN, greedy CTC)
-  (host: charset lookup, reading order)
+  tokens = rec_strips / rec_strips_flip      ([cls, flip,] CRNN, CTC)
+  (host: charset lookup, reading order; reversed for an upside-down page)
 
-The reference packs the candidates into one array and fetches a truncated
-prefix first (pack_det, _truncate_det_jit, fetch_det) to save round trips on
-a slow host link; neither changes a result. The port returns tensors and
-copies them to the host once.
-
-The 90-degree (landscape) redo and the orientation stage belong to the
-orientation slice: the engine refuses rec_try_flip, so those branches of the
-reference are not reached here.
+The reference packs the candidates and the recognition outputs into byte
+rows and fetches a truncated prefix first (pack_det, _truncate_det_jit,
+fetch_det, _pack_rec_flip) to save round trips on a slow host link; none of
+that changes a result. The port returns tensors and copies them to the host
+once.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ocrjax_torch import geometry, preprocess
+from ocrjax_torch.models import cls as cls_lib
 from ocrjax_torch.ops import ctc
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
@@ -135,28 +136,167 @@ def gray_norm(engine, canvas_dev: torch.Tensor) -> torch.Tensor:
         cfg.rec_std)
 
 
-@torch.inference_mode()
-def rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor):
-    """Recognition of normalized device strips (N, H, W) with their widths:
-    -> (tokens (N, T), n_tokens (N,), conf (N,)) device tensors, greedy
-    CTC. The crops should already be ink-refined (ops.warp two-pass
-    warps)."""
+def decode(engine, logits: torch.Tensor, frame_lengths: torch.Tensor,
+           beam: bool = False):
+    """CTC decode of the CRNN's logits: greedy, or the prefix beam search
+    at cfg.ctc_beam_width."""
     cfg = engine.config
-    strips = warp_lib.maybe_dewarp_curl(strips, widths, cfg)
-    with stage("crnn"):
-        logits, frame_lengths = engine.rec_model(strips[:, None], widths)
     with stage("ctc"):
+        if beam:
+            return ctc.ctc_beam_decode(logits, frame_lengths,
+                                       blank=cfg.ctc_blank,
+                                       max_tokens=cfg.rec_max_tokens,
+                                       beam_width=cfg.ctc_beam_width)
         return ctc.ctc_greedy_decode(logits, frame_lengths,
                                      blank=cfg.ctc_blank,
                                      max_tokens=cfg.rec_max_tokens)
 
 
-def ocr(engine, image, force_staged: bool = False, color: bool = False
-        ) -> "OcrResult":
+@torch.inference_mode()
+def rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
+               beam: bool = False):
+    """Recognition of normalized device strips (N, H, W) with their widths:
+    -> (tokens (N, T), n_tokens (N,), conf (N,)) device tensors. The crops
+    should already be ink-refined (ops.warp two-pass warps)."""
+    strips = warp_lib.maybe_dewarp_curl(strips, widths, engine.config)
+    with stage("crnn"):
+        logits, frame_lengths = engine.rec_model(strips[:, None], widths)
+    return decode(engine, logits, frame_lengths, beam)
+
+
+def _cls_margins(engine, strips: torch.Tensor, widths: torch.Tensor):
+    """Orientation margins -> (the strips rotated 180 degrees, margin);
+    positive means flipped. The symmetric ensemble logit(s) -
+    logit(rot180 s) by default; one classifier pass with margin 2 logit(s)
+    when cfg.cls_single_pass is on and the cls asset carries the
+    antisymmetry certificate (engine.cls_antisym)."""
+    cfg = engine.config
+    pad = (0.0 - cfg.rec_mean) / cfg.rec_std
+    with stage("cls"):
+        rot = cls_lib.flip_strips_by_width(
+            strips, widths, torch.ones(strips.shape[:1], dtype=torch.bool,
+                                       device=strips.device), pad)
+        if cfg.cls_single_pass and engine.cls_antisym:
+            return rot, 2.0 * engine.cls_model(strips[:, None], widths)
+        n = strips.shape[0]
+        logit = engine.cls_model(torch.cat([strips, rot])[:, None],
+                                 torch.cat([widths, widths]))
+        return rot, logit[:n] - logit[n:]
+
+
+def apply_page_prior(margin: torch.Tensor, widths: torch.Tensor,
+                     seg_ids: torch.Tensor, alpha: float, clip: float = 8.0
+                     ) -> torch.Tensor:
+    """margin_i + alpha * (width-weighted mean of its group's margins, each
+    clipped to +-clip): lines of one page borrow its orientation consensus,
+    while a line with strong evidence of its own still overrides. Group ids
+    must be dense in [0, len(margin))."""
+    n = margin.shape[0]
+    w = widths.float()
+    seg = seg_ids.long()
+    num = torch.zeros(n, device=margin.device).index_add_(
+        0, seg, torch.clamp(margin, -clip, clip) * w)
+    den = torch.zeros(n, device=margin.device).index_add_(0, seg, w)
+    return margin + alpha * (num[seg] / torch.clamp(den[seg], min=1.0))
+
+
+def _cls_flip_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
+                     seg_ids: torch.Tensor = None,
+                     prior_weights: torch.Tensor = None):
+    """The orientation stage in front of recognition: classify every strip
+    and its rotation, add the page prior over seg_ids groups (None: every
+    line decides alone), rotate the losers. prior_weights replaces the
+    widths as the prior's weights (the fused lane zeroes its empty slots).
+    Returns (strips, flipped)."""
+    rot, margin = _cls_margins(engine, strips, widths)
+    cfg = engine.config
+    if seg_ids is not None and cfg.cls_page_prior > 0:
+        margin = apply_page_prior(
+            margin, widths if prior_weights is None else prior_weights,
+            seg_ids, cfg.cls_page_prior)
+    flipped = margin > 0
+    return torch.where(flipped[:, None, None], rot, strips), flipped
+
+
+@torch.inference_mode()
+def rec_strips_flip(engine, strips: torch.Tensor, widths: torch.Tensor,
+                    seg_ids: torch.Tensor, beam: bool = False):
+    """rec_try_flip's recognition: orientation stage (seg_ids groups the
+    lines of one page), then CRNN and CTC. -> (tokens, n_tokens, conf,
+    flipped) device tensors."""
+    strips, flipped = _cls_flip_strips(engine, strips, widths,
+                                       seg_ids.to(strips.device))
+    return (*rec_strips(engine, strips, widths, beam), flipped)
+
+
+@torch.inference_mode()
+def rec_strips_forced_flip(engine, strips: torch.Tensor,
+                           widths: torch.Tensor, flip: torch.Tensor,
+                           beam: bool = False):
+    """rec_strips_flip with the flip decisions already made (the pooled
+    lane's second phase): rotate the chosen strips, recognize."""
+    cfg = engine.config
+    with stage("cls"):
+        strips = cls_lib.flip_strips_by_width(
+            strips, widths, flip, (0.0 - cfg.rec_mean) / cfg.rec_std)
+    return (*rec_strips(engine, strips, widths, beam), flip)
+
+
+@torch.inference_mode()
+def cls_margins_multi(engine, gray_dev: torch.Tensor,
+                      page_ids: torch.Tensor, quads: torch.Tensor,
+                      bucket_width: int) -> torch.Tensor:
+    """Orientation margins of quads warped off several pages with the plain
+    (un-refined) homography warp: the pooled lane's first phase, whose
+    margins go to the host for the page prior over whole pages."""
+    cfg = engine.config
+    with stage("warp_refine"):
+        strips, widths = warp_lib.warp_quads_multi(
+            gray_dev, page_ids, quads, rec_height=cfg.rec_height,
+            bucket_width=bucket_width,
+            pad_value=(0.0 - cfg.rec_mean) / cfg.rec_std)
+    return _cls_margins(engine, strips, widths)[1]
+
+
+def reading_order(quads: Sequence[np.ndarray], flipped) -> List[int]:
+    """Reading order of a page's quads; a page whose lines mostly flipped
+    is upside down and reads from the bottom right."""
+    if sum(bool(f) for f in flipped) * 2 > len(quads):
+        return geometry.sort_reading_order([-q for q in quads])
+    return geometry.sort_reading_order(quads)
+
+
+def rot90_redo(engine, img: np.ndarray, beam: bool = False,
+               color: bool = False) -> "OcrResult":
+    """Redo a landscape scan rotated 90 degrees counter-clockwise and map
+    the boxes back. A wrong direction leaves the lines upside down, which
+    the orientation stage corrects, so the redo needs rec_try_flip."""
+    from ocrjax_torch.api import DetBox, OcrLine, OcrResult
+
+    res = ocr(engine, np.ascontiguousarray(np.rot90(img)), beam=beam,
+              color=color, _allow_rot90=False)
+    w = img.shape[1]
+    return OcrResult(lines=[
+        OcrLine(box=DetBox(geometry.rot90_ccw_to_orig(line.box.quad, w),
+                           line.box.score),
+                text=line.text, confidence=line.confidence)
+        for line in res.lines], truncated=res.truncated)
+
+
+def _is_landscape(cfg, quads: np.ndarray) -> bool:
+    """The rot90 reroute's test: rec_try_flip on and a median box tilt past
+    cfg.rot90_tilt_deg."""
+    return bool(cfg.rec_try_flip and cfg.rot90_tilt_deg > 0 and float(
+        np.median(geometry.quad_tilt_deg(quads))) > cfg.rot90_tilt_deg)
+
+
+def ocr(engine, image, beam: bool = False, force_staged: bool = False,
+        color: bool = False, _allow_rot90: bool = True) -> "OcrResult":
     """One page: detect, warp on the device, recognize, order.
     force_staged skips the fused fast path (the fused lane's reroutes use
     it). color=True runs the staged pipeline over min-channel luma so
-    saturated coloured ink keeps its contrast."""
+    saturated coloured ink keeps its contrast. _allow_rot90 keeps the
+    landscape redo from recursing."""
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
 
     cfg = engine.config
@@ -171,7 +311,7 @@ def ocr(engine, image, force_staged: bool = False, color: bool = False
             # latency path: one device program for a page that fits the
             # canvas; saturated and tilted pages are redone inside
             from ocrjax_torch import fused as F
-            return F.ocr_pages_fused(engine, [img])[0]
+            return F.ocr_pages_fused(engine, [img], beam=beam)[0]
         image = img
 
     img, canvas, canvas_dev, scale, boxes, scores, valid = \
@@ -179,11 +319,15 @@ def ocr(engine, image, force_staged: bool = False, color: bool = False
     idx = np.where(valid)[0]
     if len(idx) == 0:
         return OcrResult(lines=[])
+    # a median box tilt near 90 degrees: a landscape scan, redone rotated
+    # (tilt does not depend on scale, so the canvas boxes decide)
+    if _allow_rot90 and _is_landscape(cfg, boxes[idx]):
+        return rot90_redo(engine, img, beam=beam, color=color)
     if scale < 0.999:
         # a downscaled page is recognized from crops of the ORIGINAL image
         # at full resolution, not from the blurred canvas
         return _ocr_from_original(engine, img, scale, boxes, scores, idx,
-                                  gray_fn=gray_fn)
+                                  beam=beam, gray_fn=gray_fn)
 
     # host decision: count bucket and strip width bucket, from the TIGHT
     # detector quads plus headroom for the ink refinement
@@ -200,7 +344,8 @@ def ocr(engine, image, force_staged: bool = False, color: bool = False
             quads_canvas, cfg.rec_crop_margin, cfg.rec_crop_margin,
             bounds=page_bounds)
     n = len(idx)
-    pad = cfg.line_bucket_for_count(n) - n
+    nb = cfg.line_bucket_for_count(n)
+    pad = nb - n
     if pad > 0:
         # pad rows repeat the last quad; they never reach the result
         quads_canvas = np.concatenate(
@@ -229,12 +374,22 @@ def ocr(engine, image, force_staged: bool = False, color: bool = False
                 strips, widths = warp_lib.warp_quads(
                     gray, q_dev, rec_height=cfg.rec_height,
                     bucket_width=bucket_w, pad_value=pad_v)
-        tokens, n_tokens, conf = (t.cpu().numpy() for t in rec_strips(
-            engine, strips, widths))
+        if cfg.rec_try_flip:
+            # the page's lines share one prior group; each pad row (a copy
+            # of the last quad) votes alone
+            engine.warn_untrained_cls()
+            seg = np.concatenate([np.zeros(n, np.int64),
+                                  np.arange(1, nb - n + 1)])
+            out = rec_strips_flip(engine, strips, widths,
+                                  upload(engine, seg), beam)
+        else:
+            out = rec_strips(engine, strips, widths, beam)
+        tokens, n_tokens, conf = (t.cpu().numpy() for t in out[:3])
+        flips = out[3].cpu().numpy()[:n] if cfg.rec_try_flip else []
 
     quads_orig = [geometry.scale_quads(boxes[i], scale) for i in idx]
     lines = []
-    for k in geometry.sort_reading_order(quads_orig):
+    for k in reading_order(quads_orig, flips):
         lines.append(OcrLine(
             box=DetBox(quads_orig[k], float(scores[idx[k]])),
             text=engine.charset.decode(tokens[k][: n_tokens[k]]),
@@ -350,10 +505,11 @@ def _assemble_fullres_page(quads_orig, ss, rs) -> "OcrResult":
     return OcrResult(lines=[
         OcrLine(box=DetBox(quads_orig[k], ss[k]), text=rs[k].text,
                 confidence=rs[k].confidence)
-        for k in geometry.sort_reading_order(quads_orig)])
+        for k in reading_order(quads_orig, [r.flipped for r in rs])])
 
 
-def _ocr_from_original(engine, img, scale, boxes, scores, idx, gray_fn=None):
+def _ocr_from_original(engine, img, scale, boxes, scores, idx,
+                       beam: bool = False, gray_fn=None):
     """Full-resolution recognition of one downscaled page: axis-aligned
     hull crops of the original image through recognize_strips."""
     from ocrjax_torch.api import OcrResult
@@ -362,15 +518,17 @@ def _ocr_from_original(engine, img, scale, boxes, scores, idx, gray_fn=None):
         engine, img, scale, boxes, scores, idx, gray_fn=gray_fn)
     if not strips:
         return OcrResult(lines=[])
-    return _assemble_fullres_page(quads_orig, ss,
-                                  engine.recognize_strips(strips))
+    return _assemble_fullres_page(quads_orig, ss, engine.recognize_strips(
+        strips, beam=beam, same_page=True))
 
 
-def ocr_fullres_batch(engine, images) -> List["OcrResult"]:
+def ocr_fullres_batch(engine, images, beam: bool = False
+                      ) -> List["OcrResult"]:
     """Pooled staged lane for DOWNSCALED pages: chunked batched detection
     (every chunk dispatched before any candidate is read), then all pages'
-    full-resolution host crops in one recognize_strips round. A page that
-    fails to decode yields an empty result."""
+    full-resolution host crops in one recognize_strips round with a prior
+    group per page. A page that fails to decode yields an empty result; a
+    landscape scan is redone rotated."""
     from ocrjax_torch.api import OcrResult
 
     cfg = engine.config
@@ -413,13 +571,16 @@ def ocr_fullres_batch(engine, images) -> List["OcrResult"]:
         if len(idx) == 0:
             results[i] = OcrResult(lines=[])
             continue
+        if _is_landscape(cfg, boxes[row, idx]):
+            results[i] = rot90_redo(engine, imgs[i], beam=beam)
+            continue
         items.append((i, imgs[i], scales[i], boxes[row], scores[row], idx))
-    for i, res in pooled_fullres_from_boxes(engine, items):
+    for i, res in pooled_fullres_from_boxes(engine, items, beam=beam):
         results[i] = res
     return results
 
 
-def pooled_fullres_from_boxes(engine, items):
+def pooled_fullres_from_boxes(engine, items, beam: bool = False):
     """One pooled recognize_strips round over several downscaled pages'
     full-resolution host crops, from boxes already detected. items:
     [(key, img, scale, boxes (C, 4, 2) canvas coords, scores (C,), idx)]
@@ -427,8 +588,8 @@ def pooled_fullres_from_boxes(engine, items):
     first) and bucketing.ocr_pages (which has the batch's candidates)."""
     from ocrjax_torch.api import OcrResult
 
-    all_strips, refs, out = [], [], []
-    for key, img, scale, boxes_i, scores_i, idx in items:
+    all_strips, prior, refs, out = [], [], [], []
+    for gi, (key, img, scale, boxes_i, scores_i, idx) in enumerate(items):
         quads_orig, strips, ss = _fullres_strips(
             engine, img, scale, boxes_i, scores_i, idx)
         if not strips:
@@ -436,8 +597,9 @@ def pooled_fullres_from_boxes(engine, items):
             continue
         refs.append((key, quads_orig, ss, len(all_strips)))
         all_strips.extend(strips)
+        prior.extend([gi] * len(strips))
     if all_strips:
-        rs = engine.recognize_strips(all_strips)
+        rs = engine.recognize_strips(all_strips, beam=beam, prior_ids=prior)
         for key, quads_orig, ss, lo in refs:
             out.append((key, _assemble_fullres_page(
                 quads_orig, ss, rs[lo:lo + len(quads_orig)])))
@@ -451,8 +613,15 @@ def _estimate_strip_widths(quads: np.ndarray, rec_height: int) -> np.ndarray:
                     / np.maximum(e_left, 1.0))
 
 
-def ocr_batch(engine, images: Sequence) -> List["OcrResult"]:
+def ocr_batch(engine, images: Sequence, beam: bool = False
+              ) -> List["OcrResult"]:
     """Batched end-to-end OCR over many pages, pooled and bucketed
     (bucketing.ocr_pages); a corrupt image yields an empty OcrResult."""
     from ocrjax_torch import bucketing
-    return bucketing.ocr_pages(engine, images)
+    return bucketing.ocr_pages(engine, images, beam=beam)
+
+
+def detect_tiled(engine, image) -> List["DetBox"]:
+    """Tiled detection of a high-resolution page (tiling.detect_tiled)."""
+    from ocrjax_torch import tiling
+    return tiling.detect_tiled(engine, image)

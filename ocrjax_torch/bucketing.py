@@ -12,11 +12,11 @@ Pipeline (ocr_pages):
   2. host: the valid quads of all pages, estimated strip widths, width
      buckets;
   3. per (width bucket, warp kind, count chunk): pooled warp with ink
-     refinement, CRNN, greedy CTC;
+     refinement, CRNN, greedy or beam CTC;
   4. the decoded lines back to their pages, in reading order.
 
-The 90-degree (landscape) redo and the orientation phases of the reference
-belong to the orientation slice (the engine refuses rec_try_flip).
+With rec_try_flip the orientation is decided in two phases over whole
+pages (recognize_pooled), and landscape scans are redone rotated.
 """
 
 from __future__ import annotations
@@ -72,20 +72,29 @@ def sep_warp_mask(quads: np.ndarray, warp_src: np.ndarray, cfg,
 
 @torch.inference_mode()
 def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
-                     quads: np.ndarray, b_all: np.ndarray):
+                     quads: np.ndarray, b_all: np.ndarray,
+                     beam: bool = False, prior_ids: np.ndarray = None):
     """Pooled width-bucketed recognition over normalized device pages.
 
-    gray_dev: (P, S, S) float32 normalized pages on the device; page_ids
-    (N,) row of gray_dev per quad; quads (N, 4, 2) float32 tight detector
-    boxes in page coords; b_all (N, 1, 2) per-quad valid (max_x, max_y).
-    Returns (texts, confs) aligned with quads. One dispatch per (width
-    bucket, warp kind, count chunk): near-axis-aligned quads take the
-    separable warp, tilted or tall ones the homography warp, and a bucket
-    holding more quads than the largest count bucket is split. Every
-    dispatch is issued before any result is copied to the host. (The
+    gray_dev: (P, S, S) float32 normalized pages (or tiles) on the device;
+    page_ids (N,) row of gray_dev per quad; quads (N, 4, 2) float32 tight
+    detector boxes in page coords; b_all (N, 1, 2) per-quad valid (max_x,
+    max_y). Returns (texts, confs, flipped) aligned with quads. One
+    dispatch per (width bucket, warp kind, count chunk): near-axis-aligned
+    quads take the separable warp, tilted or tall ones the homography warp,
+    and a bucket holding more quads than the largest count bucket is split.
+    Every dispatch is issued before any result is copied to the host. (The
     reference pads the page axis to a power of two to bound its compiled
-    programs; eager PyTorch needs no such padding.)"""
-    from ocrjax_torch.api_det import (_estimate_strip_widths, rec_strips,
+    programs; eager PyTorch needs no such padding.)
+
+    With rec_try_flip, phase A computes the orientation margin of every
+    quad (plain homography warp), the host adds the page prior over whole
+    prior_ids groups (default page_ids; tiles of one document share a
+    group), so page-mates in different buckets share one consensus; phase
+    B rotates the chosen strips and recognizes."""
+    from ocrjax_torch.api_det import (_estimate_strip_widths,
+                                      apply_page_prior, cls_margins_multi,
+                                      rec_strips, rec_strips_forced_flip,
                                       upload)
 
     cfg = engine.config
@@ -111,12 +120,41 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
             for lo in range(0, len(gidx), cap):
                 chunks.append((bucket_w, gidx[lo:lo + cap], sep))
 
+    def padded(idx):  # pad rows repeat the last quad; never read back
+        return np.concatenate([idx, np.repeat(idx[-1:],
+                                              pad_count(len(idx), cfg)
+                                              - len(idx))])
+
+    try_flip = cfg.rec_try_flip
+    flips_all = np.zeros(len(quads), bool)
+    if try_flip:
+        engine.warn_untrained_cls()
+        pend = []
+        for bucket_w, idx, _ in chunks:
+            sel = padded(idx)
+            pend.append((idx, cls_margins_multi(
+                engine, gray_dev, upload(engine, page_ids[sel].astype(
+                    np.int64)), upload(engine, warp_src[sel].astype(
+                        np.float32)), bucket_w)))
+        # one copy to the host for every chunk's margins
+        host = torch.cat([m for _, m in pend]).cpu()
+        margins = torch.zeros(len(quads))
+        off = 0
+        for idx, m in pend:
+            margins[torch.from_numpy(idx)] = host[off:off + len(idx)]
+            off += m.shape[0]
+        if cfg.cls_page_prior > 0:
+            seg = np.unique(prior_ids if prior_ids is not None else page_ids,
+                            return_inverse=True)[1].reshape(-1)
+            margins = apply_page_prior(
+                margins, torch.from_numpy(est_w.astype(np.int32)),
+                torch.from_numpy(seg), cfg.cls_page_prior)
+        flips_all = (margins > 0).numpy()
+
     pad_v = (0.0 - cfg.rec_mean) / cfg.rec_std
     pending = []
     for bucket_w, idx, sep in chunks:
-        n = len(idx)
-        # pad rows repeat the last quad; they never reach the result
-        sel = np.concatenate([idx, np.repeat(idx[-1:], pad_count(n, cfg) - n)])
+        sel = padded(idx)
         ids = upload(engine, page_ids[sel].astype(np.int64))
         ws = upload(engine, warp_src[sel].astype(np.float32))
         kw = dict(rec_height=cfg.rec_height, bucket_width=bucket_w,
@@ -141,19 +179,25 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
             else:
                 strips, widths = warp_lib.warp_quads_multi(
                     gray_dev, ids, ws, **kw)
-        pending.append((idx, rec_strips(engine, strips, widths)))
+        if try_flip:
+            out = rec_strips_forced_flip(
+                engine, strips, widths, upload(engine, flips_all[sel]), beam)
+        else:
+            out = rec_strips(engine, strips, widths, beam)
+        pending.append((idx, out))
 
     texts = [None] * len(quads)
     confs = [0.0] * len(quads)
     for idx, out in pending:
-        tokens, n_tokens, conf = (t.cpu().numpy() for t in out)
+        tokens, n_tokens, conf = (t.cpu().numpy() for t in out[:3])
         for k, qi in enumerate(idx):
             texts[qi] = engine.charset.decode(tokens[k][: n_tokens[k]])
             confs[qi] = float(conf[k])
-    return texts, confs
+    return texts, confs, [bool(f) for f in flips_all]
 
 
-def ocr_pages(engine, images: Sequence) -> List["OcrResult"]:
+def ocr_pages(engine, images: Sequence, beam: bool = False,
+              _allow_rot90: bool = True) -> List["OcrResult"]:
     """Pooled batched OCR: one OcrResult per input image.
 
     Detection is chunked and every chunk is dispatched before any candidate
@@ -161,10 +205,13 @@ def ocr_pages(engine, images: Sequence) -> List["OcrResult"]:
     reuses them. Pages that were downscaled onto the canvas keep the batch's
     detections but are recognized from full-resolution crops of the original
     (api_det.pooled_fullres_from_boxes), so a batch never reads a page worse
-    than the single-page lane does."""
+    than the single-page lane does. With rec_try_flip, landscape scans are
+    left out of the pool and redone rotated, as one batch, at the end
+    (_allow_rot90 keeps that redo from recursing)."""
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
-    from ocrjax_torch.api_det import (det_state, fetch_det, gray_norm,
-                                      pooled_fullres_from_boxes, upload)
+    from ocrjax_torch.api_det import (_is_landscape, det_state, fetch_det,
+                                      gray_norm, pooled_fullres_from_boxes,
+                                      reading_order, upload)
 
     cfg = engine.config
     B = len(images)
@@ -192,6 +239,14 @@ def ocr_pages(engine, images: Sequence) -> List["OcrResult"]:
         cy = boxes[i, :, :, 1].mean(axis=1)
         valid[i] &= ok[i] & (cx < nw) & (cy < nh)
 
+    rot90_pages = []
+    if _allow_rot90:
+        for i in range(B):
+            j = np.where(valid[i])[0]
+            if len(j) and _is_landscape(cfg, boxes[i, j]):
+                rot90_pages.append(i)
+                valid[i] = False
+
     # full-resolution lane for downscaled pages
     down_items = []
     for i in range(B):
@@ -218,8 +273,8 @@ def ocr_pages(engine, images: Sequence) -> List["OcrResult"]:
         with torch.inference_mode(), stage("warp_refine"):
             normed = [gray_norm(engine, d) for d in chunk_devs]
             gray_dev = torch.cat(normed) if len(normed) > 1 else normed[0]
-        texts, confs = recognize_pooled(engine, gray_dev, page_ids, quads,
-                                        b_all)
+        texts, confs, flips = recognize_pooled(
+            engine, gray_dev, page_ids, quads, b_all, beam=beam)
         for i in range(B):
             mine = [s for (p, s) in slots if p == i]
             if not mine:
@@ -229,7 +284,21 @@ def ocr_pages(engine, images: Sequence) -> List["OcrResult"]:
             results[i] = [
                 OcrLine(box=DetBox(page_quads[k], float(qscores[mine[k]])),
                         text=texts[mine[k]], confidence=confs[mine[k]])
-                for k in geometry.sort_reading_order(page_quads)]
-    for i, res in pooled_fullres_from_boxes(engine, down_items):
+                for k in reading_order(page_quads,
+                                       [flips[s] for s in mine])]
+    for i, res in pooled_fullres_from_boxes(engine, down_items, beam=beam):
         results[i] = res.lines
+    if rot90_pages:
+        # one batch for every landscape page, rotated 90 degrees ccw
+        imgs = [preprocess.load_image(images[i], auto_invert=cfg.auto_invert)
+                for i in rot90_pages]
+        redo = ocr_pages(engine, [np.ascontiguousarray(np.rot90(img))
+                                  for img in imgs],
+                         beam=beam, _allow_rot90=False)
+        for i, img, rr in zip(rot90_pages, imgs, redo):
+            results[i] = [
+                OcrLine(box=DetBox(geometry.rot90_ccw_to_orig(
+                    line.box.quad, img.shape[1]), line.box.score),
+                    text=line.text, confidence=line.confidence)
+                for line in rr.lines]
     return [OcrResult(lines=r) for r in results]

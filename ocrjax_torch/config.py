@@ -11,8 +11,8 @@ Fields the port reads but does not act on in this slice:
   * upload_bits stays meaningful: 4 means the page is quantized to 16 levels
     with a Bayer dither before detection (preprocess.pack_nibbles), which
     changes the input itself, so the port keeps it.
-  * rec_try_flip, det_int8, rec_dewarp_curl and the tiling fields belong to
-    lanes later slices port; the engine refuses the opt-in flags.
+  * det_int8 and rec_dewarp_curl belong to the opt-in paths a later slice
+    ports; the engine refuses them.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ class OcrConfig:
                                      # at decode (median subsampled luma
                                      # below 128)
     det_head_stride: int = 1         # prob-map stride vs the canvas (1, 2, 4)
-    det_int8: bool = False           # int8 DB backbone (not in the port yet)
+    det_int8: bool = False           # int8 DB backbone (refused by the port)
 
     # --- DB postprocess ---
     det_thresh: float = 0.3

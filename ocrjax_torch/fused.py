@@ -1,6 +1,7 @@
 """The fused page lane: detect -> extract_boxes -> top-K lines -> separable
-warp, ink refine, re-warp -> CRNN -> greedy CTC, on the device, for a chunk
-of pages at a time (port of ocrjax/fused.py).
+warp, ink refine, re-warp -> [orientation stage] -> CRNN -> greedy or beam
+CTC, on the device, for a chunk of pages at a time (port of
+ocrjax/fused.py).
 
 The reference compiles this as one XLA program and packs its outputs into
 one byte row for a slow host link; here `FusedOcr` is a plain function over
@@ -8,7 +9,9 @@ device tensors that returns them as tensors. ocr_pages_fused redoes, as the
 reference does, the pages this lane cannot answer: a colour page on the
 staged lane over min-channel luma, tilted pages and pages that saturate the
 line capacity on the bucketed lane, and downscaled ones of those on the
-full-resolution lane.
+full-resolution lane. With rec_try_flip a page whose lines mostly flipped
+reads in reversed order, and a landscape scan reroutes to the staged lane,
+whose 90-degree redo rotates it.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ import numpy as np
 import torch
 
 from ocrjax_torch import geometry, preprocess
-from ocrjax_torch.ops import ctc
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.profiling import stage
@@ -32,15 +34,16 @@ def top_k(score: torch.Tensor, k: int):
 
 
 class FusedOcr:
-    """Device program of the fused lane for one (K, bucket width) and the
-    engine's config at construction."""
+    """Device program of the fused lane for one (K, bucket width, greedy or
+    beam) and the engine's config at construction."""
 
     def __init__(self, engine, lines_per_page: int = 32,
-                 bucket_width: int = 320):
+                 bucket_width: int = 320, beam: bool = False):
         self.engine = engine
         self.cfg = engine.config
         self.K = lines_per_page
         self.W = bucket_width
+        self.beam = beam
 
     @torch.inference_mode()
     def __call__(self, gray_up: torch.Tensor, thr, valid_wh: torch.Tensor
@@ -49,7 +52,9 @@ class FusedOcr:
         uint8 luma; thr: (det_thresh, box_thresh, unclip_ratio,
         min_box_size); valid_wh: (B, 2) float32 valid page (w, h) on the
         canvas. Returns tokens (B, K, T), n_tokens (B, K), conf (B, K),
-        quads (B, K, 4, 2) canvas px, scores (B, K), valid (B, K)."""
+        quads (B, K, 4, 2) canvas px, scores (B, K), valid (B, K), flipped
+        (B, K)."""
+        from ocrjax_torch.api_det import _cls_flip_strips, decode
         cfg, eng, K = self.cfg, self.engine, self.K
         H = cfg.rec_height
         B = gray_up.shape[0]
@@ -105,16 +110,22 @@ class FusedOcr:
             strips = strips.reshape(B * K, H, self.W)
             widths = widths.reshape(B * K)
             strips = warp_lib.maybe_dewarp_curl(strips, widths, cfg)
+        if cfg.rec_try_flip:
+            # each page is one prior group; empty slots weigh nothing
+            seg = torch.arange(B, device=strips.device).repeat_interleave(K)
+            strips, flip = _cls_flip_strips(
+                eng, strips, widths, seg_ids=seg,
+                prior_weights=widths * line_valid.reshape(B * K))
+        else:
+            flip = torch.zeros(B * K, dtype=torch.bool, device=strips.device)
         with stage("crnn"):
             logits, frame_lengths = eng.rec_model(strips[:, None], widths)
-        with stage("ctc"):
-            tokens, n_tokens, conf = ctc.ctc_greedy_decode(
-                logits, frame_lengths, blank=cfg.ctc_blank,
-                max_tokens=cfg.rec_max_tokens)
+        tokens, n_tokens, conf = decode(eng, logits, frame_lengths, self.beam)
         return {"tokens": tokens.reshape(B, K, -1),
                 "n_tokens": n_tokens.reshape(B, K),
                 "conf": conf.reshape(B, K), "quads": quads,
-                "scores": top_s, "valid": line_valid}
+                "scores": top_s, "valid": line_valid,
+                "flipped": flip.reshape(B, K)}
 
 
 def should_reroute_rotation(vq: np.ndarray, cfg) -> bool:
@@ -143,13 +154,13 @@ def should_reroute_rotation(vq: np.ndarray, cfg) -> bool:
     return rot90 or single or coherent
 
 
-def _fused_for(engine, K: int, W: int) -> FusedOcr:
-    """FusedOcr cached per (K, W, config without the thresholds)."""
+def _fused_for(engine, K: int, W: int, beam: bool) -> FusedOcr:
+    """FusedOcr cached per (K, W, beam, config without the thresholds)."""
     cfg = engine.config
-    key = (K, W, cfg.replace(det_thresh=0.0, det_box_thresh=0.0,
-                             det_unclip_ratio=0.0, det_min_box_size=0))
+    key = (K, W, beam, cfg.replace(det_thresh=0.0, det_box_thresh=0.0,
+                                   det_unclip_ratio=0.0, det_min_box_size=0))
     if key not in engine._fused_cache:
-        engine._fused_cache[key] = FusedOcr(engine, K, W)
+        engine._fused_cache[key] = FusedOcr(engine, K, W, beam)
     return engine._fused_cache[key]
 
 
@@ -158,7 +169,8 @@ def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def ocr_pages_fused(engine, images, lines_per_page: int = None,
-                    bucket_width: int = None) -> List["OcrResult"]:
+                    bucket_width: int = None, beam: bool = False
+                    ) -> List["OcrResult"]:
     """Batched page OCR through the fused lane: per-page OcrResult in
     reading order, original image coords."""
     from ocrjax_torch import api_det, bucketing
@@ -170,7 +182,9 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     B = len(images)
     if B == 0:
         return []
-    fused = _fused_for(engine, K, W)
+    fused = _fused_for(engine, K, W, beam)
+    if cfg.rec_try_flip:
+        engine.warn_untrained_cls()
     thr = (float(cfg.det_thresh), float(cfg.det_box_thresh),
            float(cfg.det_unclip_ratio), float(cfg.det_min_box_size))
 
@@ -217,7 +231,8 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
         if i in colorful:
             # colour reroute: 601 luma can wash saturated ink out, so the
             # page runs the staged lane over min-channel luma
-            results.append(api_det.ocr(engine, images[i], color=True))
+            results.append(api_det.ocr(engine, images[i], beam=beam,
+                                       color=True))
             continue
         nh, nw = valid_hw[i]
         valid = out["valid"][i]
@@ -239,7 +254,8 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
             qs.append(geometry.scale_quads(q, scales[i]))
             metas.append(k)
         lines = []
-        for j in geometry.sort_reading_order(qs):
+        for j in api_det.reading_order(
+                qs, [out["flipped"][i, k] for k in metas]):
             k = metas[j]
             text = engine.charset.decode(
                 out["tokens"][i, k][: out["n_tokens"][i, k]])
@@ -260,11 +276,11 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     if reroute or redo:
         pooled = [i for i in reroute + redo if scales[i] >= 0.999]
         for i, res in zip(pooled, bucketing.ocr_pages(
-                engine, [images[i] for i in pooled])):
+                engine, [images[i] for i in pooled], beam=beam)):
             results[i] = res
         down = [i for i in reroute + redo if scales[i] < 0.999]
         if down:
             for i, res in zip(down, api_det.ocr_fullres_batch(
-                    engine, [images[i] for i in down])):
+                    engine, [images[i] for i in down], beam=beam)):
                 results[i] = res
     return results

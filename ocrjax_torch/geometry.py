@@ -1,5 +1,6 @@
-"""Host-side box geometry (own copy of the parts of ocrjax.geometry the
-fused lane uses): reading order, tilt, and canvas-to-page scaling."""
+"""Host-side box geometry (own copy of ocrjax.geometry): reading order,
+tilt, the 90-degree frame map, canvas-to-page scaling, and the hull IoU and
+merge of the tile seams."""
 
 from __future__ import annotations
 
@@ -47,6 +48,41 @@ def quad_tilt_deg(quads: np.ndarray) -> np.ndarray:
     return np.minimum(a, 180.0 - a)
 
 
+def rot90_ccw_to_orig(quads: np.ndarray, orig_w: int) -> np.ndarray:
+    """Map (..., 4, 2) points from the np.rot90(img) (counter-clockwise)
+    frame back to the original frame: (x', y') -> (orig_w - 1 - y', x')."""
+    q = np.asarray(quads, np.float32)
+    out = np.empty_like(q)
+    out[..., 0] = orig_w - 1 - q[..., 1]
+    out[..., 1] = q[..., 0]
+    return out
+
+
 def scale_quads(quads: np.ndarray, scale: float) -> np.ndarray:
     """Map quads from canvas to original image coords (divide by scale)."""
     return np.asarray(quads, np.float32) / float(scale)
+
+
+def quad_iou_aabb(a: np.ndarray, b: np.ndarray) -> float:
+    """IoU of the axis-aligned hulls of two quads."""
+    ax0, ay0 = a[:, 0].min(), a[:, 1].min()
+    ax1, ay1 = a[:, 0].max(), a[:, 1].max()
+    bx0, by0 = b[:, 0].min(), b[:, 1].min()
+    bx1, by1 = b[:, 0].max(), b[:, 1].max()
+    iw = min(ax1, bx1) - max(ax0, bx0)
+    ih = min(ay1, by1) - max(ay0, by0)
+    if iw <= 0 or ih <= 0:
+        return 0.0
+    inter = iw * ih
+    union = ((ax1 - ax0) * (ay1 - ay0)
+             + (bx1 - bx0) * (by1 - by0) - inter)
+    return float(inter / max(union, 1e-9))
+
+
+def merge_quads(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Axis-aligned hull of two quads (the tile-seam merge)."""
+    x0 = min(a[:, 0].min(), b[:, 0].min())
+    y0 = min(a[:, 1].min(), b[:, 1].min())
+    x1 = max(a[:, 0].max(), b[:, 0].max())
+    y1 = max(a[:, 1].max(), b[:, 1].max())
+    return np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]], np.float32)

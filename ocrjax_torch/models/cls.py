@@ -1,7 +1,7 @@
-"""Orientation classifier (port of ocrjax/models/cls.py, inference only).
-
-The fused lane of this slice does not run it (rec_try_flip is refused by the
-engine); it is built and loaded so the cls asset's weights have a home.
+"""Orientation classifier (port of ocrjax/models/cls.py, inference only):
+whether a rectified text strip is upside down, and the 180-degree rotation
+of the strips it flags. rec_try_flip runs it in front of the CRNN on every
+lane (api_det._cls_flip_strips).
 """
 
 from __future__ import annotations
@@ -51,3 +51,23 @@ class OrientationClassifier(nn.Module):
 def create_cls(config) -> OrientationClassifier:
     return OrientationClassifier(input_height=config.rec_height,
                                  dtype=compute_dtype(config))
+
+
+def flip_strips_by_width(strips: torch.Tensor, widths: torch.Tensor,
+                         flip: torch.Tensor, pad_value: float
+                         ) -> torch.Tensor:
+    """Rotate the flagged strips 180 degrees, content kept left-aligned.
+
+    strips (N, H, W), widths (N,) valid columns, flip (N,) bool. Column j of
+    a flipped strip is column w-1-j of the row-reversed strip; columns >= w
+    stay at pad_value. An index gather, where the reference multiplies by a
+    one-hot shift matrix on the TPU: both copy every element exactly."""
+    N, H, W = strips.shape
+    cols = torch.arange(W, device=strips.device)
+    w = widths.to(strips.device).long()[:, None]
+    src = torch.clamp(w - 1 - cols[None, :], 0, W - 1)        # (N, W)
+    flipped = torch.gather(strips.flip(1), 2,
+                           src[:, None, :].expand(N, H, W))
+    flipped = torch.where(cols[None, None, :] < w[:, :, None], flipped,
+                          torch.full_like(flipped, pad_value))
+    return torch.where(flip.to(strips.device)[:, None, None], flipped, strips)

@@ -118,9 +118,14 @@ def extract_boxes(prob: torch.Tensor, *, thresh: float = 0.3,
 
     n = torch.clamp(cnt, min=1.0)
     mx, my = sx / n, sy / n
-    cxx = sxx / n - mx * mx
-    cyy = syy / n - my * my
-    cxy = sxy / n - mx * my
+    # a - b * c rounded once, as XLA contracts it into a fused multiply-add:
+    # far from the centre the two terms cancel, and a separately rounded
+    # product tilts a long box by tenths of a degree
+    def fms(a, b, c):
+        return (a.double() - b.double() * c.double()).float()
+    cxx = fms(sxx / n, mx, mx)
+    cyy = fms(syy / n, my, my)
+    cxy = fms(sxy / n, mx, my)
     theta = 0.5 * torch.atan2(2.0 * cxy, cxx - cyy)
 
     # near-square components borrow the page's dominant axis (see

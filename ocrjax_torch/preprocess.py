@@ -74,6 +74,10 @@ def to_gray(img: np.ndarray) -> np.ndarray:
     15-bit coefficients of cv2.cvtColor(..., COLOR_RGB2GRAY) for uint8)."""
     if img.ndim == 2:
         return img
+    # the coefficients sum to 2**15, so a grey pixel keeps its value: a grey
+    # page in RGB (load_image makes one of every 2-D page) skips the products
+    if (img[..., 0] == img[..., 1]).all() and (img[..., 1] == img[..., 2]).all():
+        return img[..., 0].copy()
     c = img.astype(np.uint32)
     y = (9798 * c[..., 0] + 19235 * c[..., 1] + 3735 * c[..., 2]
          + 16384) >> 15

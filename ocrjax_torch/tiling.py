@@ -1,0 +1,613 @@
+"""Tiled OCR of high-resolution pages (port of ocrjax/tiling.py).
+
+A page larger than cfg.tile_size is cut into overlapping tiles: full tiles
+march at tile_size - tile_overlap, and the remainder of each axis is one
+smaller tile whose size is rounded up to a quantum, so a page costs no
+redundant full tile. Tiles of one shape run through the tile detector as
+one batch; their boxes come back to page coordinates, and boxes that meet
+across a seam merge on the host. Recognition reuses the uploaded tiles:
+each merged box is recognized from a tile that contains its whole crop,
+pooled across the tiles of a window of pages (bucketing.recognize_pooled);
+a line longer than any tile is cropped from the page on the host.
+
+ocr_tiled_batch streams pages in windows of tiles. The host prepares page
+i+1 on a prefetch thread while page i is uploaded, and the next window's
+upload and detection are issued before the current window's candidates are
+read, so the card detects while the host merges and recognizes. (The
+reference's mesh-sharded tile path belongs to the parallel slice.)
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import logging
+from typing import List, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ocrjax_torch import geometry, preprocess
+from ocrjax_torch.postprocess import db_boxes
+from ocrjax_torch.utils.profiling import stage
+
+_log = logging.getLogger("ocrjax_torch.tiling")
+
+
+def axis_plan(total: int, tile: int, overlap: int, quantum: int
+              ) -> List[Tuple[int, int]]:
+    """(start, size) intervals covering [0, total) with >= `overlap`
+    overlap: full tiles at stride tile - overlap, then one remainder tile
+    anchored at the end whose size is total - covered + overlap rounded up
+    to a multiple of `quantum` (at most `tile`)."""
+    if total <= tile:
+        return [(0, min(tile, -(-total // quantum) * quantum))]
+    stride = max(tile - overlap, 1)
+    starts = list(range(0, total - tile, stride))
+    rem = total - (starts[-1] + tile) + overlap
+    size = min(tile, -(-rem // quantum) * quantum)
+    return [(s, tile) for s in starts] + [(total - size, size)]
+
+
+def tile_plan(h: int, w: int, cfg) -> List[Tuple[int, int, int, int]]:
+    """(y, x, th, tw) tiles covering (h, w), sorted by shape so that each
+    shape's tiles are contiguous."""
+    q = max(cfg.tile_size // 8, 32)
+    ys = axis_plan(h, cfg.tile_size, cfg.tile_overlap, q)
+    xs = axis_plan(w, cfg.tile_size, cfg.tile_overlap, q)
+    corners = [(y, x, th, tw) for (y, th) in ys for (x, tw) in xs]
+    corners.sort(key=lambda c: (c[2], c[3], c[0], c[1]))
+    return corners
+
+
+def tile_grid(h: int, w: int, tile: int, overlap: int
+              ) -> List[Tuple[int, int]]:
+    """Top-left corners of a square overlapping grid of full tiles
+    covering (h, w) (the uniform plan; the lanes use tile_plan)."""
+    stride = max(tile - overlap, 1)
+
+    def starts(total):
+        if total <= tile:
+            return [0]
+        return list(range(0, total - tile, stride)) + [total - tile]
+
+    return [(y, x) for y in starts(h) for x in starts(w)]
+
+
+def _seam_bands(corners: List[Tuple[int, int, int, int]]):
+    """X- and Y-intervals covered by tile overlaps (the seam regions)."""
+
+    def bands(ivals):
+        ivals = sorted(set(ivals))
+        return [(b0, min(a1, b1)) for (a0, a1), (b0, b1)
+                in zip(ivals, ivals[1:]) if b0 < a1]
+
+    return (bands([(x, x + tw) for (_, x, _, tw) in corners]),
+            bands([(y, y + th) for (y, _, th, _) in corners]))
+
+
+def _merge_seam_boxes(quads: List[np.ndarray], scores: List[float],
+                      iou_thresh: float, x_bands=(), tile_ids=None
+                      ) -> Tuple[List[np.ndarray], List[float]]:
+    """Union-merge seam duplicates (hull IoU above iou_thresh) and the
+    fragments of one line cut by a seam: same row, x-ranges that meet or
+    leave a gap of at most 1.5 line heights inside an overlap band. With
+    tile_ids the fragment rule joins boxes of different tiles only (two
+    neighbour lines of one tile may touch); the IoU rule ignores tiles.
+    The pair tests are vectorized over (n, n) hull matrices."""
+    n = len(quads)
+    parent = list(range(n))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    if n > 1:
+        q = np.stack(quads)
+        x0, y0 = q[:, :, 0].min(axis=1), q[:, :, 1].min(axis=1)
+        x1, y1 = q[:, :, 0].max(axis=1), q[:, :, 1].max(axis=1)
+        iw = np.minimum(x1[:, None], x1) - np.maximum(x0[:, None], x0)
+        ih = np.minimum(y1[:, None], y1) - np.maximum(y0[:, None], y0)
+        inter = np.maximum(iw, 0) * np.maximum(ih, 0)
+        area = (x1 - x0) * (y1 - y0)
+        iou = inter / np.maximum(area[:, None] + area - inter, 1e-9)
+        dup = iou > iou_thresh
+        min_h = np.maximum(np.minimum(
+            (y1 - y0)[:, None], (y1 - y0)[None, :]), 1.0)
+        same_row = ih >= 0.7 * min_h
+        meet = iw >= 2.0
+        gap0 = np.minimum(x1[:, None], x1)
+        gap1 = np.maximum(x0[:, None], x0)
+        small_gap = (gap1 - gap0) <= 1.5 * min_h
+        in_band = np.zeros((n, n), bool)
+        for (b0, b1) in x_bands:
+            in_band |= (gap0 >= b0 - 4.0) & (gap1 <= b1 + 4.0)
+        frag = same_row & (meet | (small_gap & in_band))
+        if tile_ids is not None:
+            t = np.asarray(tile_ids)
+            frag &= t[:, None] != t[None, :]
+        ii, jj = np.nonzero(np.triu(dup | frag, k=1))
+        for i, j in zip(ii.tolist(), jj.tolist()):
+            parent[find(i)] = find(j)
+
+    groups = {}
+    for i in range(n):
+        groups.setdefault(find(i), []).append(i)
+    out_q, out_s = [], []
+    for members in groups.values():
+        q, s = quads[members[0]], scores[members[0]]
+        for m in members[1:]:
+            q = geometry.merge_quads(q, quads[m])
+            s = max(s, scores[m])
+        out_q.append(q)
+        out_s.append(s)
+    return out_q, out_s
+
+
+class TileForward(torch.nn.Module):
+    """Packed luma tiles (n, th, tw/2) -> candidate dict, on the device:
+    unpack the 4-bit upload, normalize, run the tile detector (the
+    engine's dedicated one when loaded and cfg.tile_det_enable, else the
+    flagship), extract_boxes with the per-tile candidate cap
+    max(det_max_candidates, tile_max_candidates) and the detector's head
+    stride."""
+
+    def __init__(self, engine):
+        super().__init__()
+        cfg = engine.config
+        self.cfg = cfg
+        tcfg = cfg.replace(det_max_candidates=max(
+            cfg.det_max_candidates, cfg.tile_max_candidates))
+        if cfg.tile_det_enable and engine.tile_det_model is not None:
+            self.model = engine.tile_det_model
+            tcfg = tcfg.replace(det_head_stride=int(
+                engine.tile_det_arch.get("head_stride", 1)))
+        else:
+            self.model = engine.det_model
+        self.tcfg = tcfg
+
+    @torch.inference_mode()
+    def forward(self, tiles_up: torch.Tensor):
+        cfg, tcfg = self.cfg, self.tcfg
+        with stage("tile_det"):
+            x = preprocess.det_normalize_gray(
+                preprocess.unpack_on_device(tiles_up, cfg), cfg.det_mean,
+                cfg.det_std)
+            prob = self.model(x)["prob"]
+        with stage("extract_boxes"):
+            return db_boxes.extract_boxes(
+                prob, thresh=float(tcfg.det_thresh),
+                box_thresh=float(tcfg.det_box_thresh),
+                unclip_ratio=float(tcfg.det_unclip_ratio),
+                min_box_size=float(tcfg.det_min_box_size),
+                **db_boxes.static_kwargs_from_config(tcfg))
+
+
+def _tile_forward(engine) -> TileForward:
+    """The engine's TileForward, rebuilt when its config changes."""
+    if engine._tile_fwd is None or engine._tile_fwd.cfg != engine.config:
+        engine._tile_fwd = TileForward(engine)
+    return engine._tile_fwd
+
+
+def _prep_page(engine, img: np.ndarray):
+    """Host tile plan of a page -> (corners, groups): corners (y, x, th, tw)
+    in tile_plan order, groups one (n, th, tw) uint8 luma stack a tile
+    shape, concatenated in corner order. The page is padded by edge
+    replication (a zero pad would put a stroke-like edge at the border).
+    With cfg.tile_blank_skip a tile whose 4x-subsampled luma spans fewer
+    than 24 levels holds no ink and is dropped (at least one tile stays)."""
+    cfg = engine.config
+    h, w = img.shape[:2]
+    corners = tile_plan(h, w, cfg)
+    gray = preprocess.to_gray(img)
+    ph = max(h, max(y + th for (y, _, th, _) in corners))
+    pw = max(w, max(x + tw for (_, x, _, tw) in corners))
+    padded = np.pad(gray, ((0, ph - h), (0, pw - w)), mode="edge")
+    if cfg.tile_blank_skip and len(corners) > 1:
+        def has_ink(y, x, th, tw):
+            sub = padded[y:y + th, x:x + tw][::4, ::4]
+            return int(sub.max()) - int(sub.min()) >= 24
+        corners = [c for c in corners if has_ink(*c)] or corners[:1]
+    groups = []
+    k = 0
+    while k < len(corners):
+        j = k
+        while j < len(corners) and corners[j][2:] == corners[k][2:]:
+            j += 1
+        groups.append(np.stack([padded[y:y + th, x:x + tw]
+                                for (y, x, th, tw) in corners[k:j]]))
+        k = j
+    return corners, groups
+
+
+def _dispatch_group(engine, tiles: np.ndarray):
+    """Upload one shape group's tiles and launch their detection without
+    waiting for it -> (uploaded tiles, candidates, tiles); (None, None,
+    tiles) when the card ran out of memory, for _fetch_group to halve."""
+    from ocrjax_torch.api_det import upload
+    try:
+        dev = upload(engine, preprocess.pack_for_upload(tiles, engine.config))
+        return dev, _tile_forward(engine)(dev), tiles
+    except torch.cuda.OutOfMemoryError:
+        return None, None, tiles
+
+
+def _fetch_group(engine, dispatched, depth: int = 0):
+    """Copy one dispatched group's candidates to the host -> (uploads,
+    boxes, scores, valid). On a device OOM its tiles are redone in halves
+    (up to 3 times)."""
+    from ocrjax_torch.api_det import fetch_det
+    dev, cand, tiles = dispatched
+    try:
+        if cand is None:
+            raise torch.cuda.OutOfMemoryError("out of memory at dispatch")
+        return ([dev],) + fetch_det([cand])
+    except torch.cuda.OutOfMemoryError:
+        if depth >= 3 or len(tiles) <= 1:
+            raise
+        _log.warning("device OOM: halving a batch of %d tiles (depth %d)",
+                     len(tiles), depth)
+        del dev, cand
+        mid = len(tiles) // 2
+        parts = [_fetch_group(engine, _dispatch_group(engine, t), depth + 1)
+                 for t in (tiles[:mid], tiles[mid:])]
+        return (parts[0][0] + parts[1][0],) + tuple(
+            np.concatenate([parts[0][k], parts[1][k]]) for k in (1, 2, 3))
+
+
+def _fetch_page(engine, dispatched):
+    """Candidates of every shape group of a page -> (uploads, boxes,
+    scores, valid), rows in corner order."""
+    devs, bs, ss, vs = [], [], [], []
+    for d in dispatched:
+        dv, b, s, v = _fetch_group(engine, d)
+        devs.extend(dv)
+        bs.append(b)
+        ss.append(s)
+        vs.append(v)
+    return devs, np.concatenate(bs), np.concatenate(ss), np.concatenate(vs)
+
+
+def _merge_page(engine, corners, boxes, scores, valid, h, w):
+    """Candidates -> (seam-merged page-frame (quads, scores), saturated).
+    A tile whose valid candidates reach the per-tile cap may hold more
+    lines than it returned (the last in raster order drop first): the page
+    is then flagged truncated."""
+    cap = _tile_forward(engine).tcfg.det_max_candidates
+    saturated = bool((valid.sum(axis=1) >= cap).any())
+    if saturated:
+        _log.warning("tile candidate cap %d reached on a page of %d tiles: "
+                     "the page is likely truncated", cap, len(corners))
+    quads, ss, tids = [], [], []
+    for t, (y, x, _, _) in enumerate(corners):
+        for i in np.where(valid[t])[0]:
+            q = boxes[t, i] + np.array([x, y], np.float32)
+            q[:, 0] = np.clip(q[:, 0], 0, w - 1)     # the unpadded page
+            q[:, 1] = np.clip(q[:, 1], 0, h - 1)
+            quads.append(q)
+            ss.append(float(scores[t, i]))
+            tids.append(t)
+    x_bands, _ = _seam_bands(corners)
+    merged = _merge_seam_boxes(quads, ss, engine.config.tile_merge_iou,
+                               x_bands, tile_ids=tids)
+    return merged, saturated
+
+
+def _run_tiles(engine, img: np.ndarray):
+    """Tile one page and detect -> (corners, uploaded tiles, merged
+    (quads, scores) in the page frame, saturated)."""
+    h, w = img.shape[:2]
+    corners, groups = _prep_page(engine, img)
+    devs, boxes, scores, valid = _fetch_page(
+        engine, [_dispatch_group(engine, g) for g in groups])
+    merged, saturated = _merge_page(engine, corners, boxes, scores, valid,
+                                    h, w)
+    return corners, devs, merged, saturated
+
+
+def detect_tiled(engine, image) -> List["DetBox"]:
+    """Tiled detection: boxes in the original image frame, reading order.
+    A page no larger than a tile is one tile."""
+    from ocrjax_torch.api import DetBox
+    img = preprocess.load_image(image, auto_invert=engine.config.auto_invert)
+    _, _, (quads, ss), _ = _run_tiles(engine, img)
+    return [DetBox(quads[i], ss[i])
+            for i in geometry.sort_reading_order(quads)]
+
+
+def _assign_quads_to_tiles(cfg, corners, quads, h, w):
+    """Each merged quad goes to a tile that contains its expanded crop
+    (within the page): of several, the one whose centre is closest, the
+    first on a tie. -> (tile_ids, tile-frame quads, tile_bounds (max x,
+    max y), pooled_idx, host_idx); host_idx holds the quads no tile
+    contains (lines longer than tile_size - 2 overlap)."""
+    tile_ids, tile_quads, tile_bounds = [], [], []
+    pooled_idx, host_idx = [], []
+    for qi, q in enumerate(quads):
+        qh = q[:, 1].max() - q[:, 1].min() + 1.0
+        m = cfg.rec_crop_margin * qh + 2.0 if cfg.rec_snap_to_ink else 2.0
+        x0, x1 = q[:, 0].min() - m, q[:, 0].max() + m
+        y0, y1 = q[:, 1].min() - m, q[:, 1].max() + m
+        cx0, cy0 = max(x0, 0.0), max(y0, 0.0)
+        cx1, cy1 = min(x1, w - 1.0), min(y1, h - 1.0)
+        best = None
+        for t, (ty, tx, th, tw) in enumerate(corners):
+            if cx0 >= tx and cy0 >= ty and cx1 < tx + tw and cy1 < ty + th:
+                c = abs(tx + tw / 2 - (x0 + x1) / 2) \
+                    + abs(ty + th / 2 - (y0 + y1) / 2)
+                if best is None or c < best[1]:
+                    best = (t, c)
+        if best is None:
+            host_idx.append(qi)
+            continue
+        t = best[0]
+        ty, tx, th, tw = corners[t]
+        pooled_idx.append(qi)
+        tile_ids.append(t)
+        tile_quads.append(q - np.array([tx, ty], np.float32))
+        tile_bounds.append([min(tw, w - tx) - 1.0, min(th, h - ty) - 1.0])
+    return tile_ids, tile_quads, tile_bounds, pooled_idx, host_idx
+
+
+def _host_fallback_strips(engine, img, quads, host_idx):
+    """Full-resolution host crops, ink-tightened, of the quads no tile
+    contains."""
+    from ocrjax_torch.api_det import _ink_crop_host
+    cfg = engine.config
+    h, w = img.shape[:2]
+    gray = preprocess.to_gray(img)
+    strips = []
+    for qi in host_idx:
+        q = quads[qi]
+        margin = cfg.rec_crop_margin * (q[:, 1].max() - q[:, 1].min() + 1) \
+            if cfg.rec_snap_to_ink else 0.0
+        x0 = int(max(0, np.floor(q[:, 0].min() - margin)))
+        x1 = int(min(w, np.ceil(q[:, 0].max() + margin) + 1))
+        y0 = int(max(0, np.floor(q[:, 1].min() - margin)))
+        y1 = int(min(h, np.ceil(q[:, 1].max() + margin) + 1))
+        strips.append(_ink_crop_host(
+            gray, x0, y0, x1, y1,
+            margin_left_px=max(0.0, q[:, 0].min() - x0),
+            margin_right_px=max(0.0, (x1 - 1) - q[:, 0].max()),
+            x_margin_keep=cfg.rec_ink_x_margin_keep,
+            flat_frac=cfg.rec_flat_band_frac,
+            box_h_px=(float(np.linalg.norm(q[3] - q[0]))
+                      if cfg.rec_flat_case_gate else 0.0))
+            if cfg.rec_snap_to_ink else gray[y0:y1, x0:x1])
+    return strips
+
+
+def max_pool_tiles(cfg) -> int:
+    """Tiles a window may hold, from the device memory budget
+    cfg.tile_window_hbm_mb: per tile the normalized float32 copy (4 B/px),
+    the packed upload (upload_bits/8 B/px) and the detector's transient
+    share (~12 B/px)."""
+    bytes_per_tile = cfg.tile_size * cfg.tile_size * (
+        4.0 + cfg.upload_bits / 8.0 + 12.0)
+    return max(2, int(cfg.tile_window_hbm_mb * 2**20 / bytes_per_tile))
+
+
+_prefetch_pool = None
+
+
+def _get_prefetch_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """One thread that prepares the next page while this one uploads."""
+    global _prefetch_pool
+    if _prefetch_pool is None:
+        _prefetch_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ocrjax-torch-tile-prep")
+    return _prefetch_pool
+
+
+def ocr_tiled_batch(engine, images, beam: bool = False,
+                    _allow_rot90: bool = True) -> List["OcrResult"]:
+    """Tiled OCR of many pages, one OcrResult each.
+
+    Pages stream in windows of at most max_pool_tiles(cfg) full-tile
+    equivalents (min with tile_pipeline_tiles for several pages; the first
+    window is one page, so the card starts at once). A window's tiles of
+    one shape, across its pages, are detected as one batch, and the next
+    window's detection is issued before this one's candidates are read.
+    Recognition pools every line of the window (tiles of one page share an
+    orientation prior group). A page that fails to decode yields an empty
+    result; with rec_try_flip a landscape scan is redone rotated, with its
+    peers, at the end (_allow_rot90 keeps that from recursing)."""
+    from ocrjax_torch import bucketing
+    from ocrjax_torch.api import DetBox, OcrLine, OcrResult
+    from ocrjax_torch.api_det import (_is_landscape, fetch_det, gray_norm,
+                                      reading_order)
+
+    cfg = engine.config
+    B = len(images)
+    results: List = [None] * B
+    cap = max_pool_tiles(cfg)
+    if B > 1 and cfg.tile_pipeline_tiles > 0:
+        cap = min(cap, cfg.tile_pipeline_tiles)
+    T = cfg.tile_size
+    area_terms = cfg.upload_bits / 8.0 + 12.0
+
+    def prep(i):
+        try:
+            img = preprocess.load_image(images[i],
+                                        auto_invert=cfg.auto_invert)
+            return (i, img) + _prep_page(engine, img)
+        except (FileNotFoundError, ValueError, OSError):
+            return (i, None, None, None)
+
+    def iter_windows():
+        pool = _get_prefetch_pool()
+        fut = pool.submit(prep, 0) if B else None
+        window, budget, first = [], 0.0, B > 1
+        for i in range(B):
+            with stage("tile_prep"):
+                page = fut.result()
+            fut = pool.submit(prep, i + 1) if i + 1 < B else None
+            if page[1] is None:
+                results[page[0]] = OcrResult(lines=[])
+                continue
+            # full-tile equivalents: the float32 copy is counted at a full
+            # tile (remainder tiles are padded to T x T for recognition),
+            # the upload and detector terms at the tile's area
+            n_tiles = sum(g.shape[0] * (4.0 + area_terms * g.shape[1]
+                                        * g.shape[2] / float(T * T))
+                          for g in page[3]) / (4.0 + area_terms)
+            if window and (first or budget + n_tiles > cap):
+                yield window
+                window, budget, first = [], 0.0, False
+            window.append(page)
+            budget += n_tiles
+        if window:
+            yield window
+
+    def dispatch_window(window):
+        """One detection batch a tile shape across the window's pages ->
+        [(spans [(page position, n tiles)], dispatched)], shapes sorted as
+        tile_plan sorts a page's corners."""
+        by_shape = {}
+        for pi, (_, _, _, groups) in enumerate(window):
+            for g in groups:
+                by_shape.setdefault(g.shape[1:], []).append((pi, g))
+        disp = []
+        for sh in sorted(by_shape):
+            items = by_shape[sh]
+            tiles = np.concatenate([g for _, g in items]) \
+                if len(items) > 1 else items[0][1]
+            disp.append(([(pi, len(g)) for pi, g in items],
+                         _dispatch_group(engine, tiles)))
+        return disp
+
+    def fetch_window(window, disp):
+        """Candidates of every group -> (per page (boxes, scores, valid,
+        rows of its tiles in the window's pooled stack), uploads in group
+        order). One copy to the host for all groups; on a device OOM the
+        groups are fetched (and halved) one by one."""
+        got = None
+        if all(d[1] is not None for _, d in disp):
+            try:
+                b_all, s_all, v_all = fetch_det([d[1] for _, d in disp])
+                got, off = [], 0
+                for _, d in disp:
+                    n_g = len(d[2])
+                    got.append(([d[0]], b_all[off:off + n_g],
+                                s_all[off:off + n_g], v_all[off:off + n_g]))
+                    off += n_g
+            except torch.cuda.OutOfMemoryError:
+                got = None
+        parts = [[] for _ in window]
+        rows = [[] for _ in window]
+        devs, row_off = [], 0
+        for gi, (spans, d) in enumerate(disp):
+            dv, b, s, v = got[gi] if got is not None \
+                else _fetch_group(engine, d)
+            devs.extend(dv)
+            off = 0
+            for pi, n in spans:
+                parts[pi].append((b[off:off + n], s[off:off + n],
+                                  v[off:off + n]))
+                rows[pi].extend(range(row_off + off, row_off + off + n))
+                off += n
+            row_off += off
+        per_page = [tuple(np.concatenate(a) for a in zip(*parts[pi]))
+                    + (rows[pi],) for pi in range(len(window))]
+        return per_page, devs
+
+    rot90_pages = []
+    windows = iter_windows()
+    w_next = next(windows, None)
+    d_next = dispatch_window(w_next) if w_next is not None else None
+    while w_next is not None:
+        window, disp = w_next, d_next
+        # the next window's detection goes out before this one is read
+        w_next = next(windows, None)
+        d_next = dispatch_window(w_next) if w_next is not None else None
+
+        with stage("tile_det_fetch"):          # once a window
+            per_page, devs = fetch_window(window, disp)
+        win = []
+        for (i, img, corners, _), (boxes, scores, valid, rows) in zip(
+                window, per_page):
+            h, w = img.shape[:2]
+            with stage("tile_seam_merge"):
+                (quads, ss), saturated = _merge_page(
+                    engine, corners, boxes, scores, valid, h, w)
+            if not quads:
+                results[i] = OcrResult(lines=[], truncated=saturated)
+                continue
+            if _allow_rot90 and _is_landscape(cfg, np.asarray(quads)):
+                rot90_pages.append((i, img))
+                continue
+            win.append(dict(i=i, img=img, corners=corners, rows=rows,
+                            quads=quads, ss=ss, saturated=saturated))
+        if not win:
+            continue
+
+        tids, tquads, tbounds, prior, refs = [], [], [], [], []
+        for p in win:
+            h, w = p["img"].shape[:2]
+            t_ids, t_quads, t_bounds, pooled_idx, host_idx = \
+                _assign_quads_to_tiles(cfg, p["corners"], p["quads"], h, w)
+            n = len(p["quads"])
+            p.update(host_idx=host_idx, texts=[None] * n, confs=[0.0] * n,
+                     flipped=[False] * n)
+            for k, qi in enumerate(pooled_idx):
+                tids.append(p["rows"][t_ids[k]])
+                tquads.append(t_quads[k])
+                tbounds.append(t_bounds[k])
+                prior.append(p["i"])
+                refs.append((p, qi))
+        if refs:
+            with torch.inference_mode(), stage("warp_refine"):
+                # remainder tiles padded to (T, T) so the window's tiles
+                # stack into one array; the per-quad bounds keep every
+                # sample inside the real tile
+                normed = [gray_norm(engine, d) for d in devs]
+                gray_dev = torch.cat([
+                    F.pad(g, (0, T - g.shape[2], 0, T - g.shape[1]))
+                    for g in normed])
+            texts, confs, flips = bucketing.recognize_pooled(
+                engine, gray_dev, np.asarray(tids, np.int32),
+                np.asarray(tquads, np.float32),
+                np.asarray(tbounds, np.float32)[:, None, :], beam=beam,
+                prior_ids=np.asarray(prior, np.int32))
+            for k, (p, qi) in enumerate(refs):
+                p["texts"][qi] = texts[k]
+                p["confs"][qi] = confs[k]
+                p["flipped"][qi] = flips[k]
+
+        for p in win:
+            if p["host_idx"]:
+                rs = engine.recognize_strips(
+                    _host_fallback_strips(engine, p["img"], p["quads"],
+                                          p["host_idx"]),
+                    beam=beam, same_page=True)
+                for k, qi in enumerate(p["host_idx"]):
+                    p["texts"][qi] = rs[k].text
+                    p["confs"][qi] = rs[k].confidence
+                    p["flipped"][qi] = rs[k].flipped
+            quads, ss = p["quads"], p["ss"]
+            results[p["i"]] = OcrResult(lines=[
+                OcrLine(box=DetBox(quads[k], ss[k]), text=p["texts"][k],
+                        confidence=p["confs"][k])
+                for k in reading_order(quads, p["flipped"])],
+                truncated=p["saturated"])
+
+    if rot90_pages:
+        redo = ocr_tiled_batch(
+            engine, [np.ascontiguousarray(np.rot90(img))
+                     for _, img in rot90_pages], beam=beam,
+            _allow_rot90=False)
+        for (i, img), rr in zip(rot90_pages, redo):
+            results[i] = OcrResult(lines=[
+                OcrLine(box=DetBox(geometry.rot90_ccw_to_orig(
+                    line.box.quad, img.shape[1]), line.box.score),
+                    text=line.text, confidence=line.confidence)
+                for line in rr.lines], truncated=rr.truncated)
+    return results
+
+
+def ocr_tiled(engine, image, beam: bool = False) -> "OcrResult":
+    """Tiled OCR of one page (ocr_tiled_batch of one)."""
+    return ocr_tiled_batch(engine, [image], beam=beam)[0]

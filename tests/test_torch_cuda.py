@@ -1,6 +1,8 @@
 """Tests that need an NVIDIA GPU: the cc_label and conv_fused CUDA kernels
 against their plain versions, the homography solve against committed JAX
-values, and the engine's device settings. They skip without CUDA.
+values, the engine's device settings, and the device-agnostic beam search
+and 180-degree flip giving the card the CPU's answers (tie order of the
+stable sort included). They skip without CUDA.
 This file imports neither JAX nor ocrjax, so on the GPU machine (which has
 no JAX) it runs without the suite's conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from ocrjax_torch.ops import cc_label, conv_fused, warp
+from ocrjax_torch.models import cls
+from ocrjax_torch.ops import cc_label, conv_fused, ctc, warp
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "ocrjax_torch", "testdata")
@@ -244,3 +247,31 @@ def test_solve_homographies_matches_committed_jax_values(cuda):
         p = np.einsum("nij,nj->ni", Hs, corner)
         np.testing.assert_allclose(p[:, :2] / p[:, 2:], lanes["hquads"][:, 2],
                                    atol=1e-2)
+
+
+@pytest.mark.parametrize("case", ["uniform", "random"])
+def test_beam_decode_on_the_card_equals_the_cpu(cuda, case):
+    """Uniform logits tie everywhere: the stable sort must keep index
+    order on the card as on the CPU."""
+    rng = np.random.RandomState(4)
+    logits = np.zeros((8, 80, 96), np.float32) if case == "uniform" \
+        else (rng.randn(8, 80, 96) * 3).astype(np.float32)
+    lengths = torch.from_numpy(np.asarray([80, 0, 1, 17, 80, 40, 63, 5]))
+    want = ctc.ctc_beam_decode(torch.from_numpy(logits), lengths,
+                               max_tokens=16)
+    got = ctc.ctc_beam_decode(torch.from_numpy(logits).to(cuda),
+                              lengths.to(cuda), max_tokens=16)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=1e-5, atol=0)
+
+
+def test_flip_strips_on_the_card_is_bit_exact(cuda):
+    rng = np.random.RandomState(5)
+    strips = torch.from_numpy(rng.randn(6, 32, 96).astype(np.float32))
+    widths = torch.tensor([96, 1, 0, 40, 95, 7])
+    flip = torch.tensor([1, 1, 1, 0, 1, 1], dtype=torch.bool)
+    want = cls.flip_strips_by_width(strips, widths, flip, -1.0)
+    got = cls.flip_strips_by_width(strips.to(cuda), widths.to(cuda),
+                                   flip.to(cuda), -1.0)
+    assert torch.equal(got.cpu(), want)

@@ -33,7 +33,7 @@ def test_no_jax_or_ocrjax_imports():
     assert len(files) > 10
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"ocrjax_torch/api_det.py", "ocrjax_torch/bucketing.py",
-            "ocrjax_torch/bench_conv.py",
+            "ocrjax_torch/bench_conv.py", "ocrjax_torch/tiling.py",
             "ocrjax_torch/ops/conv_fused.py"} <= names
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
@@ -43,7 +43,8 @@ def test_no_jax_or_ocrjax_imports():
 def test_api_import_pulls_in_no_jax():
     code = ("import sys, ocrjax_torch.api, ocrjax_torch.fused, "
             "ocrjax_torch.api_det, ocrjax_torch.bucketing, "
-            "ocrjax_torch.bench_conv, ocrjax_torch.ops.conv_fused; "
+            "ocrjax_torch.bench_conv, ocrjax_torch.ops.conv_fused, "
+            "ocrjax_torch.tiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

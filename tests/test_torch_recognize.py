@@ -22,6 +22,7 @@ from ocrjax.train import synth
 from ocrjax_torch import preprocess as tpre
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.config import OcrConfig
+from test_torch_fixture import few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STRIP_SEEDS = [301, 302, 303, 304, 305, 306, 307, 308]
@@ -198,12 +199,19 @@ def test_recognize_reads_the_golden_strips(engines):
 
 
 def test_beam_and_flip_stay_refused(engines):
-    _, port = engines
-    strip = np.full((32, 64), 255, np.uint8)
-    with pytest.raises(NotImplementedError, match="beam"):
-        port.recognize(strip, beam=True)
-    with pytest.raises(NotImplementedError, match="beam"):
-        port.recognize_strips([strip], beam=True)
-    with pytest.raises(NotImplementedError, match="rec_try_flip"):
-        OcrEngine(config=port.config.replace(rec_try_flip=True),
-                  device="cpu")
+    """Beam CTC and rec_try_flip are ported: they answer as the reference
+    does. Only the opt-in flags det_int8 and rec_dewarp_curl stay
+    refused."""
+    jax_engine, port = engines
+    strips = _strips(jax_engine)[:3]
+    got = port.recognize_strips(strips, beam=True)
+    want = jax_engine.recognize_strips(strips, beam=True)
+    assert [r.text for r in got] == [r.text for r in want]
+    np.testing.assert_allclose([r.confidence for r in got],
+                               [r.confidence for r in want], atol=1e-5)
+    assert port.recognize(strips[0], beam=True).text == got[0].text
+    OcrEngine(config=port.config.replace(rec_try_flip=True), device="cpu")
+    for flag in ("det_int8", "rec_dewarp_curl"):
+        with pytest.raises(NotImplementedError, match=flag):
+            OcrEngine(config=port.config.replace(**{flag: True}),
+                      device="cpu")

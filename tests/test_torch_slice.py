@@ -16,6 +16,7 @@ from ocrjax.charset import Charset
 from ocrjax.config import OcrConfig as JaxConfig
 from ocrjax.train import synth
 from ocrjax_torch.api import OcrEngine, asset_config
+from test_torch_fixture import few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = (101, 102, 103)
@@ -88,17 +89,17 @@ def test_rotated_page_needs_a_later_lane(engines):
 
 
 def test_unported_options_raise(engines, config, pages):
-    """Beam CTC and the opt-in flags stay refused until they are ported;
-    the lanes beside the fused one (the bucketed batch, an oversize page,
-    the staged lane with ocr_single_fused off) answer."""
+    """The opt-in flags stay refused until they are ported; beam CTC, now
+    ported, answers on every lane, and the lanes beside the fused one (the
+    bucketed batch, an oversize page, the staged lane with
+    ocr_single_fused off) answer."""
     _, port = engines
-    with pytest.raises(NotImplementedError):
-        port.ocr(pages[0], beam=True)
-    with pytest.raises(NotImplementedError):
-        port.ocr_batch(pages[:1], beam=True, fused=True)
-    with pytest.raises(NotImplementedError):
-        port.ocr_batch(pages[:1], beam=True)
-    for flag in ("rec_try_flip", "det_int8", "rec_dewarp_curl"):
+    beam = [line.text for line in port.ocr(pages[0], beam=True).lines]
+    assert beam == [line.text for line in port.ocr_batch(
+        pages[:1], beam=True, fused=True)[0].lines]
+    assert beam == [line.text for line in port.ocr_batch(
+        pages[:1], beam=True)[0].lines]
+    for flag in ("det_int8", "rec_dewarp_curl"):
         with pytest.raises(NotImplementedError):
             OcrEngine(config=config.replace(**{flag: True}), device="cpu")
     want = [line.text for line in port.ocr(pages[0]).lines]

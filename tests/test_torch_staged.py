@@ -20,6 +20,7 @@ from ocrjax.config import OcrConfig as JaxConfig
 from ocrjax.train import synth
 from ocrjax_torch import api_det, bucketing, fused
 from ocrjax_torch.api import OcrEngine, asset_config
+from test_torch_fixture import few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIXED = ("straight", "tilted", "color", "dense", "bigtilt")
@@ -113,11 +114,12 @@ def fused_mixed(engines, pages):
 
 def test_every_reroute_of_the_fused_lane_fires(fused_mixed):
     _, _, calls = fused_mixed
-    assert ("ocr", 1, {"color": True}) in calls               # colour page
+    greedy = {"beam": False}
+    assert ("ocr", 1, {**greedy, "color": True}) in calls     # colour page
     # the tilted page and the 40-line page pool on the bucketed lane
-    assert ("ocr_pages", 2, {}) in calls
+    assert ("ocr_pages", 2, greedy) in calls
     # the oversize tilted page goes to the full-resolution lane
-    assert ("ocr_fullres_batch", 1, {}) in calls
+    assert ("ocr_fullres_batch", 1, greedy) in calls
 
 
 @pytest.mark.parametrize("name", MIXED)
