@@ -2,12 +2,12 @@
 ocrjax/api.py): recognize / recognize_strips, detect, ocr and ocr_batch on
 the fused, staged and bucketed lanes, the tiled lanes for high-resolution
 pages (detect_tiled, ocr_tiled, ocr_tiled_batch), greedy or beam CTC, and
-the orientation stage (rec_try_flip).
+the orientation stage (rec_try_flip), and the opt-in paths: int8
+detection (det_int8), curved-baseline dewarp (rec_dewarp_curl) and the
+flat-band case gate (rec_flat_case_gate).
 
 The engine runs on the card unless the caller asks for the CPU: the default
-device is "cuda", and constructing it without CUDA raises. The two options
-that a later slice ports, det_int8 and rec_dewarp_curl, raise
-NotImplementedError instead of answering differently from the reference.
+device is "cuda", and constructing it without CUDA raises.
 """
 
 from __future__ import annotations
@@ -89,13 +89,6 @@ def asset_config(path: str = None, metas=None, **overrides) -> OcrConfig:
                         for k, v in cfg.items()})
 
 
-def _refuse_unported(cfg: OcrConfig) -> None:
-    for flag in ("det_int8", "rec_dewarp_curl"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}=True is not ported yet (ROADMAP.md: opt-in paths)")
-
-
 def _build(module: torch.nn.Module, sd, seed: int, device) -> torch.nn.Module:
     if sd is None:
         W.init_random_(module, seed)
@@ -136,7 +129,6 @@ class OcrEngine:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {device!r}")
         self.config = config or OcrConfig()
-        _refuse_unported(self.config)
         self.charset = charset or default_charset()
         cfg = self.config
         det_arch = dict(channels=(64, 128, 256, 512), blocks_per_stage=2,
@@ -207,17 +199,22 @@ class OcrEngine:
 
     def _rec_step(self, batch_u8: torch.Tensor, widths: torch.Tensor,
                   beam: bool = False, seg_ids: torch.Tensor = None):
-        """normalize -> CRNN -> CTC over a (N, H, W) uint8 batch; with
-        seg_ids (rec_try_flip) the orientation stage runs first, seg_ids
-        grouping the strips for its page prior, and the flip decisions come
-        back as a fourth tensor."""
-        from ocrjax_torch.api_det import rec_strips, rec_strips_flip
+        """normalize -> [dewarp] -> CRNN -> CTC over a (N, H, W) uint8
+        batch; with seg_ids (rec_try_flip) the orientation stage runs after
+        the dewarp, seg_ids grouping the strips for its page prior, and the
+        flip decisions come back as a fourth tensor. The dewarp comes
+        before the orientation stage here, as in the reference's C1
+        programs (the staged lanes flip first)."""
+        from ocrjax_torch.api_det import _cls_flip_strips, crnn_decode
+        from ocrjax_torch.ops.warp import maybe_dewarp_curl
         cfg = self.config
         with torch.inference_mode():
             x = preprocess.rec_normalize(batch_u8, cfg.rec_mean, cfg.rec_std)
-        if seg_ids is None:
-            return rec_strips(self, x[:, 0], widths, beam)
-        return rec_strips_flip(self, x[:, 0], widths, seg_ids, beam)
+            strips = maybe_dewarp_curl(x[:, 0], widths, cfg)
+            if seg_ids is None:
+                return crnn_decode(self, strips, widths, beam)
+            strips, flipped = _cls_flip_strips(self, strips, widths, seg_ids)
+            return (*crnn_decode(self, strips, widths, beam), flipped)
 
     def recognize_strips(self, strips: Sequence[np.ndarray],
                          beam: bool = False, same_page: bool = False,

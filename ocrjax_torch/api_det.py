@@ -10,7 +10,8 @@ Call structure of the staged ocr():
   (host: valid boxes; a page whose boxes read ~90 degrees is redone rotated)
   (host: count and width buckets)
   strips = warp_quads_refined                (probe, ink refine, re-warp)
-  tokens = rec_strips / rec_strips_flip      ([cls, flip,] CRNN, CTC)
+  tokens = rec_strips / rec_strips_flip      ([cls, flip,] [dewarp,] CRNN,
+                                             CTC)
   (host: charset lookup, reading order; reversed for an upside-down page)
 
 The reference packs the candidates and the recognition outputs into byte
@@ -29,6 +30,7 @@ import torch
 
 from ocrjax_torch import geometry, preprocess
 from ocrjax_torch.models import cls as cls_lib
+from ocrjax_torch.models import db_int8
 from ocrjax_torch.ops import ctc
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
@@ -64,7 +66,7 @@ class DetState:
             gray_u8 = preprocess.unpack_on_device(gray_up, cfg)
             x = preprocess.det_normalize_gray(gray_u8, cfg.det_mean,
                                               cfg.det_std)
-            prob = eng.det_model(x)["prob"]
+            prob = db_int8.apply_prob(eng.det_model, x, cfg.det_int8)
         with stage("extract_boxes"):
             cand = db_boxes.extract_boxes(
                 prob, thresh=float(cfg.det_thresh),
@@ -152,16 +154,24 @@ def decode(engine, logits: torch.Tensor, frame_lengths: torch.Tensor,
                                      max_tokens=cfg.rec_max_tokens)
 
 
-@torch.inference_mode()
-def rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
-               beam: bool = False):
-    """Recognition of normalized device strips (N, H, W) with their widths:
-    -> (tokens (N, T), n_tokens (N,), conf (N,)) device tensors. The crops
-    should already be ink-refined (ops.warp two-pass warps)."""
-    strips = warp_lib.maybe_dewarp_curl(strips, widths, engine.config)
+def crnn_decode(engine, strips: torch.Tensor, widths: torch.Tensor,
+                beam: bool = False):
+    """CRNN and CTC over normalized device strips (N, H, W) -> (tokens
+    (N, T), n_tokens (N,), conf (N,)) device tensors."""
     with stage("crnn"):
         logits, frame_lengths = engine.rec_model(strips[:, None], widths)
     return decode(engine, logits, frame_lengths, beam)
+
+
+@torch.inference_mode()
+def rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
+               beam: bool = False):
+    """Recognition of normalized device strips (N, H, W) with their widths,
+    the staged and pooled lanes' order: dewarp (rec_dewarp_curl), CRNN,
+    CTC -> (tokens (N, T), n_tokens (N,), conf (N,)) device tensors. The
+    crops should already be ink-refined (ops.warp two-pass warps)."""
+    strips = warp_lib.maybe_dewarp_curl(strips, widths, engine.config)
+    return crnn_decode(engine, strips, widths, beam)
 
 
 def _cls_margins(engine, strips: torch.Tensor, widths: torch.Tensor):
@@ -221,9 +231,9 @@ def _cls_flip_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
 @torch.inference_mode()
 def rec_strips_flip(engine, strips: torch.Tensor, widths: torch.Tensor,
                     seg_ids: torch.Tensor, beam: bool = False):
-    """rec_try_flip's recognition: orientation stage (seg_ids groups the
-    lines of one page), then CRNN and CTC. -> (tokens, n_tokens, conf,
-    flipped) device tensors."""
+    """rec_try_flip's recognition on the staged lane: orientation stage
+    (seg_ids groups the lines of one page), then rec_strips (dewarp, CRNN,
+    CTC) -> (tokens, n_tokens, conf, flipped) device tensors."""
     strips, flipped = _cls_flip_strips(engine, strips, widths,
                                        seg_ids.to(strips.device))
     return (*rec_strips(engine, strips, widths, beam), flipped)

@@ -4,15 +4,13 @@ Every field of ocrjax's OcrConfig is kept, with the same name, type and
 default, so the `config` JSON in an asset's metadata parses the same way in
 both packages. See ocrjax/config.py for the measurements behind each default.
 
-Fields the port reads but does not act on in this slice:
+The port acts on every field as the reference does, except three:
   * fetch_bytes, fetch_max_tokens, det_fetch_candidates describe how the
     TPU program packed its outputs into bytes for a slow host link. The port
     returns its outputs as tensors and packs nothing, so they are ignored.
   * upload_bits stays meaningful: 4 means the page is quantized to 16 levels
     with a Bayer dither before detection (preprocess.pack_nibbles), which
     changes the input itself, so the port keeps it.
-  * det_int8 and rec_dewarp_curl belong to the opt-in paths a later slice
-    ports; the engine refuses them.
 """
 
 from __future__ import annotations
@@ -32,7 +30,7 @@ class OcrConfig:
                                      # at decode (median subsampled luma
                                      # below 128)
     det_head_stride: int = 1         # prob-map stride vs the canvas (1, 2, 4)
-    det_int8: bool = False           # int8 DB backbone (refused by the port)
+    det_int8: bool = False           # int8 DB backbone and FPN (opt-in)
 
     # --- DB postprocess ---
     det_thresh: float = 0.3

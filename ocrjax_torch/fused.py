@@ -1,7 +1,7 @@
-"""The fused page lane: detect -> extract_boxes -> top-K lines -> separable
-warp, ink refine, re-warp -> [orientation stage] -> CRNN -> greedy or beam
-CTC, on the device, for a chunk of pages at a time (port of
-ocrjax/fused.py).
+"""The fused page lane: detect (float or int8) -> extract_boxes -> top-K
+lines -> separable warp (or the exact homography warp), ink refine, re-warp
+-> [dewarp] -> [orientation stage] -> CRNN -> greedy or beam CTC, on the
+device, for a chunk of pages at a time (port of ocrjax/fused.py).
 
 The reference compiles this as one XLA program and packs its outputs into
 one byte row for a slow host link; here `FusedOcr` is a plain function over
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ocrjax_torch import geometry, preprocess
+from ocrjax_torch.models import db_int8
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.profiling import stage
@@ -35,15 +36,20 @@ def top_k(score: torch.Tensor, k: int):
 
 class FusedOcr:
     """Device program of the fused lane for one (K, bucket width, greedy or
-    beam) and the engine's config at construction."""
+    beam, warp kind) and the engine's config at construction.
+    separable_warp=False takes the exact homography warp grouped per page
+    and the homography ink refine in place of the separable AABB crop and
+    its AABB refine (the reference's make_fused_ocr_fn switch)."""
 
     def __init__(self, engine, lines_per_page: int = 32,
-                 bucket_width: int = 320, beam: bool = False):
+                 bucket_width: int = 320, beam: bool = False,
+                 separable_warp: bool = True):
         self.engine = engine
         self.cfg = engine.config
         self.K = lines_per_page
         self.W = bucket_width
         self.beam = beam
+        self.separable_warp = separable_warp
 
     @torch.inference_mode()
     def __call__(self, gray_up: torch.Tensor, thr, valid_wh: torch.Tensor
@@ -54,7 +60,7 @@ class FusedOcr:
         canvas. Returns tokens (B, K, T), n_tokens (B, K), conf (B, K),
         quads (B, K, 4, 2) canvas px, scores (B, K), valid (B, K), flipped
         (B, K)."""
-        from ocrjax_torch.api_det import _cls_flip_strips, decode
+        from ocrjax_torch.api_det import _cls_flip_strips, crnn_decode
         cfg, eng, K = self.cfg, self.engine, self.K
         H = cfg.rec_height
         B = gray_up.shape[0]
@@ -62,7 +68,8 @@ class FusedOcr:
             gray_u8 = preprocess.unpack_on_device(gray_up, cfg)
             x = preprocess.det_normalize_gray(gray_u8, cfg.det_mean,
                                               cfg.det_std)
-            prob = eng.det_model(x)["prob"]                   # (B, S', S')
+            prob = db_int8.apply_prob(eng.det_model, x,
+                                      cfg.det_int8)           # (B, S', S')
         with stage("extract_boxes"):
             # zero the prob map outside each page's valid area before the
             # top-K, so replicate-padding streaks cannot take line slots
@@ -90,11 +97,16 @@ class FusedOcr:
                 warp_src = warp_lib.expand_quads(
                     quads, cfg.rec_crop_margin, cfg.rec_crop_margin,
                     bounds=bounds)
-            strips, widths = warp_lib.warp_quads_separable(
-                gray, warp_src, rec_height=H, bucket_width=self.W,
-                pad_value=pad_v)
+            if self.separable_warp:
+                warp = warp_lib.warp_quads_separable
+                refine = warp_lib.refine_aabb_to_ink
+            else:
+                warp = warp_lib.warp_quads_grouped
+                refine = warp_lib.refine_quads_to_ink
+            strips, widths = warp(gray, warp_src, rec_height=H,
+                                  bucket_width=self.W, pad_value=pad_v)
             if cfg.rec_snap_to_ink:
-                refined = warp_lib.refine_aabb_to_ink(
+                refined = refine(
                     strips.reshape(B * K, H, self.W), widths.reshape(B * K),
                     warp_src.reshape(B * K, 4, 2), rec_height=H,
                     bounds=bounds.expand(B, K, 1, 2).reshape(B * K, 1, 2),
@@ -104,9 +116,9 @@ class FusedOcr:
                     orig_quads=quads.reshape(B * K, 4, 2),
                     flat_frac=cfg.rec_flat_band_frac,
                     case_gate=cfg.rec_flat_case_gate)
-                strips, widths = warp_lib.warp_quads_separable(
-                    gray, refined.reshape(B, K, 4, 2), rec_height=H,
-                    bucket_width=self.W, pad_value=pad_v)
+                strips, widths = warp(gray, refined.reshape(B, K, 4, 2),
+                                      rec_height=H, bucket_width=self.W,
+                                      pad_value=pad_v)
             strips = strips.reshape(B * K, H, self.W)
             widths = widths.reshape(B * K)
             strips = warp_lib.maybe_dewarp_curl(strips, widths, cfg)
@@ -118,9 +130,7 @@ class FusedOcr:
                 prior_weights=widths * line_valid.reshape(B * K))
         else:
             flip = torch.zeros(B * K, dtype=torch.bool, device=strips.device)
-        with stage("crnn"):
-            logits, frame_lengths = eng.rec_model(strips[:, None], widths)
-        tokens, n_tokens, conf = decode(eng, logits, frame_lengths, self.beam)
+        tokens, n_tokens, conf = crnn_decode(eng, strips, widths, self.beam)
         return {"tokens": tokens.reshape(B, K, -1),
                 "n_tokens": n_tokens.reshape(B, K),
                 "conf": conf.reshape(B, K), "quads": quads,
@@ -154,13 +164,17 @@ def should_reroute_rotation(vq: np.ndarray, cfg) -> bool:
     return rot90 or single or coherent
 
 
-def _fused_for(engine, K: int, W: int, beam: bool) -> FusedOcr:
-    """FusedOcr cached per (K, W, beam, config without the thresholds)."""
+def _fused_for(engine, K: int, W: int, beam: bool,
+               separable_warp: bool = True) -> FusedOcr:
+    """FusedOcr cached per (K, W, beam, warp kind, config without the
+    thresholds)."""
     cfg = engine.config
-    key = (K, W, beam, cfg.replace(det_thresh=0.0, det_box_thresh=0.0,
-                                   det_unclip_ratio=0.0, det_min_box_size=0))
+    key = (K, W, beam, separable_warp,
+           cfg.replace(det_thresh=0.0, det_box_thresh=0.0,
+                       det_unclip_ratio=0.0, det_min_box_size=0))
     if key not in engine._fused_cache:
-        engine._fused_cache[key] = FusedOcr(engine, K, W, beam)
+        engine._fused_cache[key] = FusedOcr(engine, K, W, beam,
+                                            separable_warp)
     return engine._fused_cache[key]
 
 
@@ -169,10 +183,11 @@ def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def ocr_pages_fused(engine, images, lines_per_page: int = None,
-                    bucket_width: int = None, beam: bool = False
-                    ) -> List["OcrResult"]:
+                    bucket_width: int = None, beam: bool = False,
+                    separable_warp: bool = True) -> List["OcrResult"]:
     """Batched page OCR through the fused lane: per-page OcrResult in
-    reading order, original image coords."""
+    reading order, original image coords. separable_warp=False runs the
+    fused program with the exact homography warp (FusedOcr)."""
     from ocrjax_torch import api_det, bucketing
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
 
@@ -182,7 +197,7 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     B = len(images)
     if B == 0:
         return []
-    fused = _fused_for(engine, K, W, beam)
+    fused = _fused_for(engine, K, W, beam, separable_warp)
     if cfg.rec_try_flip:
         engine.warn_untrained_cls()
     thr = (float(cfg.det_thresh), float(cfg.det_box_thresh),

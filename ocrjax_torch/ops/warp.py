@@ -2,8 +2,10 @@
 separable AABB crop+resize as two batched matmuls (per page for the fused
 lane, pooled over pages with a row tile for the bucketed lane), the exact
 homography warp as a written-out bilinear gather (staged lane, tilted
-quads), the ink-band probe, and the two ink refinements (AABB and
-homography) with their two-pass warps.
+quads, and grouped per page for the fused program with separable_warp
+off), the ink-band probe, the two ink refinements (AABB and homography)
+with their two-pass warps, the strip-space ink snap, and the
+curved-baseline dewarp.
 
 The matmuls must run in float32 without TF32 to agree with the reference;
 the engine turns TF32 off.
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from ocrjax_torch.utils import flatband
+from ocrjax_torch.utils.profiling import stage
 
 
 def expand_quads(quads: torch.Tensor, frac_y: float, frac_x: float,
@@ -389,6 +392,22 @@ def warp_quads(page: torch.Tensor, quads: torch.Tensor, *,
                             bucket_width=bucket_width, pad_value=pad_value)
 
 
+def warp_quads_grouped(pages: torch.Tensor, quads: torch.Tensor, *,
+                       rec_height: int = 32, bucket_width: int = 320,
+                       pad_value: float = 0.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """warp_quads_multi for quads grouped by page: pages (B, H, W), quads
+    (B, K, 4, 2) -> (strips (B, K, rec_height, bucket_width), widths
+    (B, K)). The fused program's exact-homography warp."""
+    B, K = quads.shape[:2]
+    ids = torch.arange(B, device=pages.device).repeat_interleave(K)
+    strips, widths = warp_quads_multi(
+        pages, ids, quads.reshape(B * K, 4, 2), rec_height=rec_height,
+        bucket_width=bucket_width, pad_value=pad_value)
+    return (strips.reshape(B, K, rec_height, bucket_width),
+            widths.reshape(B, K))
+
+
 def warp_quads_multi_separable(pages: torch.Tensor, page_ids: torch.Tensor,
                                quads: torch.Tensor, *, rec_height: int = 32,
                                bucket_width: int = 320, tile_h: int = 128,
@@ -539,6 +558,41 @@ def refine_quads_to_ink(strips: torch.Tensor, widths: torch.Tensor,
     return refined
 
 
+def snap_strips_to_ink(strips: torch.Tensor, widths: torch.Tensor, *,
+                       ink_thresh: float = 0.0, min_count: int = 2,
+                       pad_y: float = 2.0, pad_x: float = 3.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-crop each strip to the ink band through its vertical centre by an
+    aspect-preserving bilinear resample in strip space (the two-pass
+    refine + re-warp is better where the page is at hand). strips (N, H, W)
+    normalized, widths (N,) -> (strips zero outside the new extent, new
+    widths); strips with no ink pass through unchanged."""
+    N, H, W = strips.shape
+    dev = strips.device
+    x0, y0, x1, y1, ok, _ = ink_boxes(
+        strips, widths, ink_thresh=ink_thresh, min_count=min_count,
+        pad_y=pad_y, pad_x=pad_x)
+    src_h = y1 - y0 + 1.0
+    src_w = x1 - x0 + 1.0
+    s = torch.minimum(H / src_h, W / src_w)   # never overflow the bucket
+    new_w = torch.clamp(torch.round(src_w * s), 1, W).to(torch.int32)
+    new_h = torch.clamp(torch.round(src_h * s), 1, H).to(torch.int32)
+    oy = (torch.arange(H, device=dev)[None, :] + 0.5) / s[:, None] \
+        + y0[:, None] - 0.5                                   # (N, H)
+    ox = (torch.arange(W, device=dev)[None, :] + 0.5) / s[:, None] \
+        + x0[:, None] - 0.5                                   # (N, W)
+    out = _bilinear_sample(strips, torch.arange(N, device=dev),
+                           ox[:, None, :].expand(N, H, W),
+                           oy[:, :, None].expand(N, H, W))
+    keep = ((torch.arange(W, device=dev)[None, None, :]
+             < new_w[:, None, None])
+            & (torch.arange(H, device=dev)[None, :, None]
+               < new_h[:, None, None]))
+    out = torch.where(keep, out, 0.0)
+    return (torch.where(ok[:, None, None], out, strips),
+            torch.where(ok, new_w, widths.to(torch.int32)))
+
+
 def warp_quads_multi_refined(pages, page_ids, quads, bounds, *,
                              rec_height: int = 32, bucket_width: int = 320,
                              ink_thresh: float = 0.0, margin_fracs=None,
@@ -567,11 +621,107 @@ def warp_quads_refined(page, quads, bounds, **kw
     return warp_quads_multi_refined(page[None], ids, quads, bounds, **kw)
 
 
+def dewarp_curl(strips: torch.Tensor, widths: torch.Tensor, *,
+                ink_thresh: float = 0.0, segments: int = 16,
+                min_dev_px: float = 2.0, max_shift_px: float = 10.0,
+                pad_value: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Straightens curved text baselines in warped strips (see
+    ocrjax/ops/warp.py::dewarp_curl for the measurements behind it).
+
+    Per strip: the top and bottom ink envelopes of every inked column, a
+    least-squares quadratic fit of each (3x3 normal equations), and only the
+    fit's quadratic component, clamped to +-max_shift_px, as the vertical
+    shift of each column. A strip counts as curved when the two envelopes'
+    curvatures agree in sign and within 60%, its peak-to-peak deviation
+    reaches min_dev_px and 16 or more columns hold ink; others pass through
+    bit for bit. The shift is sampled at segments + 1 node columns, each
+    node's bilinear row resample is a one-hot (H, H) matrix, and each
+    column block lerps between the products with its two flanking nodes:
+    batched matmuls, as in the reference.
+
+    strips (N, H, W) normalized (ink below ink_thresh), widths (N,) ->
+    (strips, curved (N,) bool)."""
+    N, H, W = strips.shape
+    if W % segments:
+        segments = max(1, W // (W // segments + 1))
+        while W % segments:
+            segments -= 1
+    S = segments
+    dev = strips.device
+    cols = torch.arange(W, dtype=torch.float32, device=dev)
+    rows = torch.arange(H, dtype=torch.float32, device=dev)
+    wf = widths.float()
+    col_in = cols[None, :] < wf[:, None]
+    ink = (strips < ink_thresh) & col_in[:, None, :]          # (N, H, W)
+
+    cnt = ink.sum(dim=1).float()                              # (N, W)
+    top = torch.where(cnt > 0, _argmax_first(ink, 1).float(), 0.0)
+    bot = torch.where(cnt > 0,
+                      (H - 1 - _argmax_first(ink.flip(1), 1)).float(), 0.0)
+    v = (cnt >= 1.0) & col_in                                 # inked columns
+
+    # x normalized to [-1, 1] over each strip's valid width
+    xn = (cols[None, :] / torch.clamp(wf[:, None] - 1.0, min=1.0)) * 2.0 - 1.0
+    phi = torch.stack([torch.ones_like(xn), xn, xn * xn], dim=-1)  # (N, W, 3)
+    vw = v.float()[..., None]
+    A = torch.einsum("nwi,nwj->nij", phi * vw, phi) \
+        + 1e-3 * torch.eye(3, device=dev)[None]
+    b_top = torch.einsum("nwi,nw->ni", phi * vw, top)
+    b_bot = torch.einsum("nwi,nw->ni", phi * vw, bot)
+    c_top = torch.linalg.solve(A, b_top[..., None])[..., 0]   # (N, 3)
+    c_bot = torch.linalg.solve(A, b_bot[..., None])[..., 0]
+    a_top, a_bot = c_top[:, 2], c_bot[:, 2]
+    coef = 0.5 * (c_top + c_bot)
+
+    # the quadratic component only: q(x) = a (x^2 - mean of x^2 over ink)
+    n_v = torch.clamp(vw[..., 0].sum(dim=1), min=1.0)
+    x2 = xn * xn
+    x2_mean = torch.where(v, x2, 0.0).sum(dim=1) / n_v
+    quad = coef[:, 2:3] * (x2 - x2_mean[:, None])             # (N, W)
+    delta = torch.clamp(quad, -max_shift_px, max_shift_px)
+    inf = float("inf")
+    dev_pp = (torch.where(v, quad, -inf).amax(dim=1)
+              - torch.where(v, quad, inf).amin(dim=1))
+    enough = vw[..., 0].sum(dim=1) >= 16.0                    # fit support
+    agree = ((a_top * a_bot > 0.0)
+             & ((a_top - a_bot).abs()
+                <= 0.6 * torch.maximum(a_top.abs(), a_bot.abs())))
+    curved = (torch.isfinite(dev_pp) & (dev_pp >= min_dev_px) & enough
+              & agree)
+    delta = torch.where(curved[:, None], delta, 0.0)
+
+    # piecewise-linear displacement through the node matrices
+    Wb = W // S
+    node_cols = torch.clamp(torch.arange(S + 1, device=dev) * Wb, 0, W - 1)
+    d_nodes = delta[:, node_cols]                             # (N, S+1)
+    lo = torch.floor(d_nodes)
+    f = d_nodes - lo
+    ii = rows[None, None, :, None]
+    hh = torch.arange(H, device=dev)[None, None, None, :]
+    src0 = torch.clamp(ii + lo[:, :, None, None], 0, H - 1)
+    src1 = torch.clamp(ii + lo[:, :, None, None] + 1.0, 0, H - 1)
+    R = ((hh == src0) * (1.0 - f[:, :, None, None])
+         + (hh == src1) * f[:, :, None, None])                # (N, S+1, H, H)
+    blocks = strips.reshape(N, H, S, Wb).permute(0, 2, 1, 3)  # (N, S, H, Wb)
+    left = torch.matmul(R[:, :-1], blocks)                    # (N, S, H, Wb)
+    right = torch.matmul(R[:, 1:], blocks)
+    t = torch.arange(Wb, dtype=torch.float32, device=dev) / float(Wb)
+    out = ((1.0 - t) * left + t * right).permute(0, 2, 1, 3).reshape(N, H, W)
+    out = torch.where(col_in[:, None, :], out, pad_value)
+    return torch.where(curved[:, None, None], out, strips), curved
+
+
 def maybe_dewarp_curl(strips: torch.Tensor, widths: torch.Tensor, cfg
                       ) -> torch.Tensor:
-    """Curved-baseline rectification: the identity unless
-    cfg.rec_dewarp_curl, which this slice does not port."""
-    if getattr(cfg, "rec_dewarp_curl", False):
-        raise NotImplementedError(
-            "rec_dewarp_curl is not ported yet (ROADMAP: opt-in paths)")
-    return strips
+    """dewarp_curl under cfg.rec_dewarp_curl, on normalized strips (the
+    identity otherwise). Where it runs follows the reference per entry
+    point: before the orientation stage on the fused lane and in
+    recognize_strips, after it on the staged and pooled lanes."""
+    if not cfg.rec_dewarp_curl:
+        return strips
+    with stage("dewarp"):
+        return dewarp_curl(
+            strips, widths, ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
+            min_dev_px=cfg.rec_dewarp_min_dev_px,
+            max_shift_px=cfg.rec_dewarp_max_px,
+            pad_value=(0.0 - cfg.rec_mean) / cfg.rec_std)[0]

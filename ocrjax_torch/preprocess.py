@@ -18,7 +18,8 @@ for bit:
     first, then a float32 bilinear resize), which its default-luma lanes
     take; colour (min-channel) pages and the full-resolution batch lane take
     the RGB-first canvas, as in the reference;
-  * image paths are decoded with cv2, imported only then (arrays need none).
+  * image paths are decoded by `imageio.read_image`: PNG by the port's own
+    decoder (the result of cv2.imread), other formats by cv2 where present.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ocrjax_torch import imageio
 from ocrjax_torch.config import OcrConfig
 
 ImageLike = Union[str, np.ndarray]
@@ -49,11 +51,7 @@ def is_inverted(img: np.ndarray, thresh: int = 128, stride: int = 4) -> bool:
 def load_image(image: ImageLike, auto_invert: bool = True) -> np.ndarray:
     """Path or uint8 array -> uint8 RGB HWC, dark ink on light paper."""
     if isinstance(image, str):
-        import cv2
-        bgr = cv2.imread(image, cv2.IMREAD_COLOR)
-        if bgr is None:
-            raise FileNotFoundError(f"could not decode image: {image}")
-        img = np.ascontiguousarray(bgr[..., ::-1])
+        img = imageio.read_image(image)
     else:
         img = np.asarray(image)
         if img.dtype != np.uint8:

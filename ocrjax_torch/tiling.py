@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ocrjax_torch import geometry, preprocess
+from ocrjax_torch.models import db_int8
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.profiling import stage
 
@@ -150,9 +151,9 @@ class TileForward(torch.nn.Module):
     """Packed luma tiles (n, th, tw/2) -> candidate dict, on the device:
     unpack the 4-bit upload, normalize, run the tile detector (the
     engine's dedicated one when loaded and cfg.tile_det_enable, else the
-    flagship), extract_boxes with the per-tile candidate cap
-    max(det_max_candidates, tile_max_candidates) and the detector's head
-    stride."""
+    flagship, in int8 under cfg.det_int8), extract_boxes with the per-tile
+    candidate cap max(det_max_candidates, tile_max_candidates) and the
+    detector's head stride."""
 
     def __init__(self, engine):
         super().__init__()
@@ -164,8 +165,12 @@ class TileForward(torch.nn.Module):
             self.model = engine.tile_det_model
             tcfg = tcfg.replace(det_head_stride=int(
                 engine.tile_det_arch.get("head_stride", 1)))
+            # the reference keeps the tile detector in float: int8 measured
+            # a wash at tile shapes on its TPU
+            self.int8 = False
         else:
             self.model = engine.det_model
+            self.int8 = cfg.det_int8
         self.tcfg = tcfg
 
     @torch.inference_mode()
@@ -175,7 +180,7 @@ class TileForward(torch.nn.Module):
             x = preprocess.det_normalize_gray(
                 preprocess.unpack_on_device(tiles_up, cfg), cfg.det_mean,
                 cfg.det_std)
-            prob = self.model(x)["prob"]
+            prob = db_int8.apply_prob(self.model, x, self.int8)
         with stage("extract_boxes"):
             return db_boxes.extract_boxes(
                 prob, thresh=float(tcfg.det_thresh),

@@ -31,6 +31,21 @@ Three more pairs serve the later phases of chip_smoke.py:
 The guard re-renders every input and re-runs the beam strips; the page
 outputs, minutes of JAX on the CPU, are regenerated only by --write.
 
+The opt-in paths (chip_smoke.py phases 10 and 11) have three more files:
+  * expected_jax_optin_fp32_960.json: det_int8 on the fused lane (the 4
+    pages), ocr() and the bucketed lane batch; the fused program with the
+    exact homography warp on the 4 pages; rec_flat_case_gate on the lane
+    batch, fused and bucketed;
+  * det_int8_fold_jax.npz: ocrjax's BN fold of the det asset (XLA:CPU's
+    rsqrt), with which the card holds the rest of the int8 path exactly;
+  * curl_960.npz (three pages under page curl, the third upside down, and
+    line crops) and expected_jax_curl_fp32_960.json: rec_dewarp_curl
+    through ocr, ocr_batch fused and bucketed and recognize_strips, with
+    and without rec_try_flip, and the dewarp's curved masks.
+The guard re-renders the curl inputs, re-derives the fold and re-runs the
+curved masks; the lane outputs are regenerated only by --write, or alone
+by --write-optin.
+
 Regenerate (after an intended change to the renderer, weights or
 pipeline) with:
     JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write
@@ -388,6 +403,202 @@ def jax_c5_expected(c5) -> dict:
             "reference_moment_error_px": _box_gap(plain, exact)}
 
 
+def jax_int8_fold(model) -> dict:
+    """ocrjax's BN fold (db_int8._fold_bn under jit, XLA:CPU's rsqrt) of
+    every BatchNorm of a port DBDetector: {module name: (g, bias')}, with
+    the folded weight w' = w * g. The port's own fold takes the correctly
+    rounded rsqrt; XLA:CPU's (rsqrtps and two Newton steps) agrees on about
+    89% of channels, so chip_smoke.py and the int8 tests hold the rest of
+    the int8 path to the reference with these values, and the port's own
+    fold at its own bar."""
+    import jax
+    from ocrjax.models import db_int8 as jq
+    fold = jax.jit(lambda k, s, b, m, v: jq._fold_bn(
+        k, {"scale": s, "bias": b}, {"mean": m, "var": v}))
+    out = {}
+    for name, m in model.named_modules():
+        if type(m).__name__ == "BatchNorm":
+            vals = [getattr(m, a).detach().cpu().numpy() for a in
+                    ("weight", "bias", "running_mean", "running_var")]
+            g, b = fold(np.ones((1, 1, 1, len(vals[0])), np.float32), *vals)
+            out[name] = (np.asarray(g).reshape(-1), np.asarray(b))
+    return out
+
+
+OPTIN_EXPECTED = os.path.join(TESTDATA, "expected_jax_optin_fp32_960.json")
+INT8_FOLD = os.path.join(TESTDATA, "det_int8_fold_jax.npz")
+CURL = os.path.join(TESTDATA, "curl_960.npz")
+CURL_EXPECTED = os.path.join(TESTDATA, "expected_jax_curl_fp32_960.json")
+CURL_SEEDS = (1602, 1606, 1613)          # the third page is upside down
+# (page, line, rotated 180 degrees) of each line crop
+CURL_STRIP_ROWS = ((0, 4, False), (1, 2, False), (2, 1, False), (1, 2, True))
+
+
+def jax_optin_expected(pages, lanes) -> dict:
+    """The opt-in lanes of ocrjax in float32 at 960:
+      * int8: det_int8 on the fused lane over the 4 fixture pages (their
+        per-channel activation max equals that of the 4 pages x 4 that
+        chip_smoke.py runs as one chunk, so the int8 codes are the same),
+        ocr() of page 0, and the bucketed lane on the lane batch;
+      * grouped: the fused program with the exact homography warp
+        (make_fused_ocr_fn(separable_warp=False)) on the 4 pages;
+      * case_gate: rec_flat_case_gate on the lane batch, fused and
+        bucketed."""
+    from ocrjax import fused as jfused
+    from ocrjax.api import OcrEngine
+    batch = lane_batch(lanes, pages)
+    base = dict(det_max_side=SIZE, compute_dtype="float32")
+    eng = OcrEngine.from_pretrained(config=asset_config(**base,
+                                                        det_int8=True))
+    int8 = {"fused": [result_record(r)
+                      for r in eng.ocr_batch(list(pages), fused=True)],
+            "ocr": result_record(eng.ocr(pages[0])),
+            "bucketed_batch": [result_record(r) for r in
+                               eng.ocr_batch(batch, fused=False)]}
+    eng = OcrEngine.from_pretrained(config=asset_config(**base))
+    cfg = eng.config
+    K, W = cfg.fused_lines_per_page, cfg.rec_bucket_for_width(
+        10 * cfg.rec_height)
+    key = (K, W, False, cfg.replace(det_thresh=0.0, det_box_thresh=0.0,
+                                    det_unclip_ratio=0.0, det_min_box_size=0))
+    eng._fused_cache = {key: jfused.make_fused_ocr_fn(
+        eng, K, W, separable_warp=False)}
+    grouped = [result_record(r) for r in eng.ocr_batch(list(pages),
+                                                        fused=True)]
+    eng = OcrEngine.from_pretrained(config=asset_config(
+        **base, rec_flat_case_gate=True))
+    gate = {"fused_batch": [result_record(r)
+                            for r in eng.ocr_batch(batch, fused=True)],
+            "bucketed_batch": [result_record(r)
+                               for r in eng.ocr_batch(batch, fused=False)]}
+    return {"det_max_side": SIZE, "compute_dtype": "float32",
+            "batch": list(LANE_BATCH), "int8": int8, "grouped": grouped,
+            "case_gate": gate}
+
+
+def render_curl_inputs() -> dict:
+    """Three 960 pages of long lines under page curl
+    (synth.warp_page_projective(curl=1.0): a bow of 1.5% of the page
+    height), the third rotated 180 degrees, and line crops of them for
+    recognize_strips, one of them upside down."""
+    from ocrjax.charset import Charset
+    from ocrjax.train import synth
+    charset = Charset.from_file(os.path.join(ROOT, "assets",
+                                             "rec.charset.txt"))
+    out = {}
+    for k, seed in enumerate(CURL_SEEDS):
+        rng = np.random.RandomState(seed)
+        page, quads, _ = synth.render_page(
+            rng, charset, size=(SIZE, SIZE), n_lines=(6, 9),
+            text_height=(20, 28), max_len=45, min_len=37)
+        page, quads = synth.warp_page_projective(page, quads, rng,
+                                                 severity=0.0, curl=1.0)
+        out[f"page{k}"] = page
+        out[f"quads{k}"] = np.stack(quads).astype(np.float32)
+    for j, (k, line, rot) in enumerate(CURL_STRIP_ROWS):
+        q = out[f"quads{k}"][line]
+        y0, y1 = int(q[:, 1].min()) - 8, int(q[:, 1].max()) + 9
+        x0, x1 = int(q[:, 0].min()) - 8, int(q[:, 0].max()) + 9
+        crop = out[f"page{k}"][max(y0, 0):y1, max(x0, 0):x1]
+        out[f"strip{j}"] = np.ascontiguousarray(np.rot90(crop, 2) if rot
+                                                else crop)
+    out["page2"] = np.ascontiguousarray(np.rot90(out["page2"], 2))
+    return out
+
+
+def curl_pages(curl) -> list:
+    return [curl[f"page{k}"] for k in range(len(CURL_SEEDS))]
+
+
+def curl_strips(curl) -> list:
+    return [curl[f"strip{j}"] for j in range(len(CURL_STRIP_ROWS))]
+
+
+def jax_curved_masks(curl, boxes) -> list:
+    """dewarp_curl's `curved` mask over each page's staged strips: the
+    quads (one list a page) expanded by the crop margin, warped twice with
+    the ink refine (bucket 512) off the page normalized in float32."""
+    import jax.numpy as jnp
+    from ocrjax.ops import warp as jw
+    cfg = asset_config()
+    out = []
+    for page, quads in zip(curl_pages(curl), boxes):
+        quads = np.asarray(quads, np.float32)
+        bounds = np.asarray([page.shape[1] - 1.0, page.shape[0] - 1.0],
+                            np.float32)
+        gray = (page.astype(np.float32) / 255.0 - cfg.rec_mean) / cfg.rec_std
+        exp = jw.expand_quads(quads, cfg.rec_crop_margin,
+                              cfg.rec_crop_margin, bounds=bounds)
+        strips, widths = jw.warp_quads_refined(
+            jnp.asarray(gray), jnp.asarray(exp, jnp.float32),
+            jnp.asarray(bounds), rec_height=cfg.rec_height,
+            bucket_width=512, ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
+            margin_fracs=(cfg.rec_crop_margin, cfg.rec_crop_margin),
+            x_margin_keep=cfg.rec_ink_x_margin_keep,
+            pad_value=(0.0 - cfg.rec_mean) / cfg.rec_std,
+            orig_quads=jnp.asarray(quads), flat_frac=cfg.rec_flat_band_frac)
+        _, curved = jw.dewarp_curl(
+            strips, widths, ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
+            min_dev_px=cfg.rec_dewarp_min_dev_px,
+            max_shift_px=cfg.rec_dewarp_max_px,
+            pad_value=(0.0 - cfg.rec_mean) / cfg.rec_std)
+        out.append(np.asarray(curved).tolist())
+    return out
+
+
+def jax_curl_expected(curl) -> dict:
+    """rec_dewarp_curl on the curl pages, without and with rec_try_flip:
+    ocr() of each page, ocr_batch fused and bucketed, recognize_strips on
+    the line crops (each its own prior group, so the upside-down crop
+    flips); and the curved masks over the staged strips of the boxes ocr()
+    found."""
+    from ocrjax.api import OcrEngine
+    pages = curl_pages(curl)
+    out = {"pages": len(pages), "det_max_side": SIZE,
+           "compute_dtype": "float32", "rec_dewarp_curl": True}
+    for flip in (False, True):
+        eng = OcrEngine.from_pretrained(config=asset_config(
+            det_max_side=SIZE, compute_dtype="float32",
+            rec_dewarp_curl=True, rec_try_flip=flip))
+        recs = eng.recognize_strips(curl_strips(curl))
+        out["try_flip" if flip else "plain"] = {
+            "ocr": [result_record(eng.ocr(p)) for p in pages],
+            "fused_batch": [result_record(r)
+                            for r in eng.ocr_batch(pages, fused=True)],
+            "bucketed_batch": [result_record(r)
+                               for r in eng.ocr_batch(pages, fused=False)],
+            "strips": {"strings": [r.text for r in recs],
+                       "conf": [float(r.confidence) for r in recs],
+                       "flipped": [bool(r.flipped) for r in recs]}}
+    out["curved"] = jax_curved_masks(
+        curl, [p["boxes"] for p in out["plain"]["ocr"]])
+    return out
+
+
+def write_int8_fold() -> None:
+    """INT8_FOLD: ocrjax's BN fold of the shipped det asset, by the port's
+    module names (g and bias' a BatchNorm)."""
+    from ocrjax_torch.api import OcrEngine as PortEngine
+    from ocrjax_torch.api import asset_config as port_config
+    port = PortEngine.from_pretrained(config=port_config(
+        compute_dtype="float32"), device="cpu")
+    fold = jax_int8_fold(port.det_model)
+    np.savez_compressed(INT8_FOLD, **{k: v for name, (g, b) in fold.items()
+                                      for k, v in ((name, g),
+                                                   (name + ".bias", b))})
+
+
+def write_optin_fixture() -> None:
+    """The opt-in files alone (--write does them with everything else)."""
+    pages = np.load(PAGES)["pages"]
+    lanes = dict(np.load(LANES))
+    _write_json(OPTIN_EXPECTED, jax_optin_expected(pages, lanes))
+    write_int8_fold()
+    curl = render_curl_inputs()
+    np.savez_compressed(CURL, **curl)
+    _write_json(CURL_EXPECTED, jax_curl_expected(curl))
+
+
 def _write_json(path, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=1)
@@ -413,6 +624,7 @@ def write_fixture() -> None:
     c5 = render_c5_pages()
     np.savez_compressed(C5, **c5)
     _write_json(C5_EXPECTED, jax_c5_expected(c5))
+    write_optin_fixture()
 
 
 def test_fixture_pages_and_expected_outputs_are_current():
@@ -515,10 +727,74 @@ def test_c5_fixture_inputs_are_current():
     assert want["reference_moment_error_px"] == _box_gap(want, exact) > 0
 
 
+def test_optin_fixture_is_current():
+    """The opt-in expectations cover what they claim: each flag reads some
+    page otherwise than the float separable lane does; the committed BN
+    fold is ocrjax's fold of the shipped det asset."""
+    with open(OPTIN_EXPECTED) as f:
+        want = json.load(f)
+    with open(EXPECTED) as f:
+        plain = json.load(f)["pages"]
+    with open(LANES_EXPECTED) as f:
+        lanes = json.load(f)
+    assert want["batch"] == list(LANE_BATCH)
+    assert len(want["int8"]["fused"]) == len(want["grouped"]) == len(SEEDS)
+    assert len(want["int8"]["bucketed_batch"]) == len(LANE_BATCH)
+    # the int8 activation scale spans the batch: page 0 alone (ocr) and in
+    # the 4-page chunk reads the same strings with other scores
+    one, four = want["int8"]["ocr"], want["int8"]["fused"][0]
+    assert one["strings"] == four["strings"] and one["scores"] != four["scores"]
+    for got, ref in ((want["int8"]["fused"], plain),
+                     (want["grouped"], plain),
+                     (want["case_gate"]["fused_batch"],
+                      lanes["fused_batch"])):
+        assert min(len(p["strings"]) for p in got) > 0
+        assert any(a["strings"] != b["strings"] for a, b in zip(got, ref))
+    from ocrjax_torch.api import OcrEngine as PortEngine
+    from ocrjax_torch.api import asset_config as port_config
+    port = PortEngine.from_pretrained(config=port_config(
+        compute_dtype="float32"), device="cpu")
+    committed = np.load(INT8_FOLD)
+    fold = jax_int8_fold(port.det_model)
+    assert sorted(committed.files) == sorted(
+        k for name in fold for k in (name, name + ".bias"))
+    for name, (g, b) in fold.items():
+        np.testing.assert_array_equal(committed[name], g, err_msg=name)
+        np.testing.assert_array_equal(committed[name + ".bias"], b)
+
+
+def test_curl_fixture_inputs_are_current():
+    """The curl inputs re-render bit for bit; the dewarp bends at least a
+    quarter of the staged strips (the curved masks re-run); with
+    rec_try_flip the upside-down crop flips."""
+    committed = np.load(CURL)
+    curl = render_curl_inputs()
+    assert sorted(committed.files) == sorted(curl)
+    for k, v in curl.items():
+        np.testing.assert_array_equal(committed[k], v, err_msg=k)
+    with open(CURL_EXPECTED) as f:
+        want = json.load(f)
+    masks = want["curved"]
+    assert jax_curved_masks(curl, [p["boxes"] for p in
+                                   want["plain"]["ocr"]]) == masks
+    assert sum(map(sum, masks)) * 4 >= sum(map(len, masks))
+    for key in ("plain", "try_flip"):
+        for lane in ("ocr", "fused_batch", "bucketed_batch"):
+            assert min(len(p["strings"]) for p in want[key][lane]) >= 6
+    assert want["try_flip"]["strips"]["flipped"] == [
+        rot for _, _, rot in CURL_STRIP_ROWS]
+
+
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
+    written = []
     if "--write" in sys.argv:
         write_fixture()
-        for path in (PAGES, EXPECTED, LANES, LANES_EXPECTED, BEAM_EXPECTED,
-                     FLIP, FLIP_EXPECTED, C5, C5_EXPECTED):
+        written = [PAGES, EXPECTED, LANES, LANES_EXPECTED, BEAM_EXPECTED,
+                   FLIP, FLIP_EXPECTED, C5, C5_EXPECTED]
+    elif "--write-optin" in sys.argv:
+        write_optin_fixture()
+    if written or "--write-optin" in sys.argv:
+        for path in written + [OPTIN_EXPECTED, INT8_FOLD, CURL,
+                               CURL_EXPECTED]:
             print(f"wrote {path} ({os.path.getsize(path)} B)")

@@ -1,6 +1,6 @@
 """Import hygiene and the device default of ocrjax_torch: no module of the
-port, and not chip_smoke.py, imports JAX or ocrjax; importing the API pulls
-neither in; the engine refuses to run without CUDA unless asked for the
+port (its CLI included), and not chip_smoke.py, imports JAX or ocrjax;
+importing the API or the CLI pulls neither in; the engine refuses to run without CUDA unless asked for the
 CPU; its config has exactly ocrjax's fields and defaults."""
 
 import ast
@@ -34,7 +34,9 @@ def test_no_jax_or_ocrjax_imports():
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"ocrjax_torch/api_det.py", "ocrjax_torch/bucketing.py",
             "ocrjax_torch/bench_conv.py", "ocrjax_torch/tiling.py",
-            "ocrjax_torch/ops/conv_fused.py"} <= names
+            "ocrjax_torch/ops/conv_fused.py", "ocrjax_torch/cli.py",
+            "ocrjax_torch/imageio.py",
+            "ocrjax_torch/models/db_int8.py"} <= names
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad
@@ -44,7 +46,8 @@ def test_api_import_pulls_in_no_jax():
     code = ("import sys, ocrjax_torch.api, ocrjax_torch.fused, "
             "ocrjax_torch.api_det, ocrjax_torch.bucketing, "
             "ocrjax_torch.bench_conv, ocrjax_torch.ops.conv_fused, "
-            "ocrjax_torch.tiling; "
+            "ocrjax_torch.tiling, ocrjax_torch.cli, ocrjax_torch.imageio, "
+            "ocrjax_torch.models.db_int8; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

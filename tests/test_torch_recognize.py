@@ -199,9 +199,9 @@ def test_recognize_reads_the_golden_strips(engines):
 
 
 def test_beam_and_flip_stay_refused(engines):
-    """Beam CTC and rec_try_flip are ported: they answer as the reference
-    does. Only the opt-in flags det_int8 and rec_dewarp_curl stay
-    refused."""
+    """Nothing stays refused: beam CTC and rec_try_flip answer as the
+    reference does, det_int8 constructs, and rec_dewarp_curl recognizes
+    the strips as ocrjax with the flag does."""
     jax_engine, port = engines
     strips = _strips(jax_engine)[:3]
     got = port.recognize_strips(strips, beam=True)
@@ -211,7 +211,14 @@ def test_beam_and_flip_stay_refused(engines):
                                [r.confidence for r in want], atol=1e-5)
     assert port.recognize(strips[0], beam=True).text == got[0].text
     OcrEngine(config=port.config.replace(rec_try_flip=True), device="cpu")
-    for flag in ("det_int8", "rec_dewarp_curl"):
-        with pytest.raises(NotImplementedError, match=flag):
-            OcrEngine(config=port.config.replace(**{flag: True}),
-                      device="cpu")
+    assert OcrEngine(config=port.config.replace(det_int8=True),
+                     device="cpu").config.det_int8
+    import dataclasses
+    cfg = port.config.replace(rec_dewarp_curl=True)
+    got = OcrEngine.from_pretrained(config=cfg, device="cpu"
+                                    ).recognize_strips(strips)
+    want = JaxEngine.from_pretrained(config=JaxConfig(
+        **dataclasses.asdict(cfg))).recognize_strips(strips)
+    assert [r.text for r in got] == [r.text for r in want]
+    np.testing.assert_allclose([r.confidence for r in got],
+                               [r.confidence for r in want], atol=1e-5)

@@ -89,10 +89,10 @@ def test_rotated_page_needs_a_later_lane(engines):
 
 
 def test_unported_options_raise(engines, config, pages):
-    """The opt-in flags stay refused until they are ported; beam CTC, now
-    ported, answers on every lane, and the lanes beside the fused one (the
-    bucketed batch, an oversize page, the staged lane with
-    ocr_single_fused off) answer."""
+    """No option is refused any more: det_int8 and rec_dewarp_curl run and
+    read the page as ocrjax with the same flag does; beam CTC answers on
+    every lane, and the lanes beside the fused one (the bucketed batch, an
+    oversize page, the staged lane with ocr_single_fused off) answer."""
     _, port = engines
     beam = [line.text for line in port.ocr(pages[0], beam=True).lines]
     assert beam == [line.text for line in port.ocr_batch(
@@ -100,8 +100,19 @@ def test_unported_options_raise(engines, config, pages):
     assert beam == [line.text for line in port.ocr_batch(
         pages[:1], beam=True)[0].lines]
     for flag in ("det_int8", "rec_dewarp_curl"):
-        with pytest.raises(NotImplementedError):
-            OcrEngine(config=config.replace(**{flag: True}), device="cpu")
+        cfg = config.replace(**{flag: True})
+        got = OcrEngine(config=cfg, device="cpu")     # constructs
+        assert getattr(got.config, flag)
+        got = OcrEngine.from_pretrained(config=cfg, device="cpu").ocr(
+            pages[2])
+        want = JaxEngine.from_pretrained(config=JaxConfig(
+            **dataclasses.asdict(cfg))).ocr(pages[2])
+        # strings, order and boxes (test_torch_int8.py holds the scores)
+        assert [line.text for line in got.lines] == \
+            [line.text for line in want.lines] != []
+        assert np.abs(np.stack([line.box.quad for line in got.lines])
+                      - np.stack([line.box.quad for line in want.lines])
+                      ).max() <= 0.011
     want = [line.text for line in port.ocr(pages[0]).lines]
     assert [line.text for line in
             port.ocr_batch(pages[:1], fused=False)[0].lines] == want
