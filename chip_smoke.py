@@ -84,11 +84,32 @@ Phases, in order; any failure exits non-zero:
      process, their JSON equal to the engine's results on the same arrays
      rounded as the CLI rounds; the --tiled call labels on the global path,
      the others on the shared path; wall time of each call.
-Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5
-and 7-12; conv_fused: 4); the counts are set to 0 just before such a phase
-and read just after, in all and by path; the lane phases 2, 3, 5-8, 10, 11
-and 12's page calls must label on the shared path only, phase 9 and 12's
-tiled call on the global path only. The last lines are the kernels' JSON
+  13. the bench: bench_lib.run_bench on the committed traffic
+     (bench_traffic.npz: 256 strips, 16 pages at 960, 3 dense pages of
+     3072x2048) at the reference's sizes, bf16; its report on a line of
+     its own; every key of the reference's report but the link fields,
+     every number finite; the device ceiling at or above the fused lane's
+     pages/s; the last fused window's strings read as a direct float32
+     ocr_batch on the same pages on at least 0.9 of the lines; K1 on the
+     shared path in the page sections and on the general path in the C5
+     sections (counted by the bench, by section and path);
+  14. e2e_eval: score_e2e of the committed pages (e2e_pages.npz, the 8
+     pages of evaluate_e2e at seed 123) in float32, equal to ocrjax's
+     line exact match, detection recall and CER
+     (expected_jax_e2e_fp32.json), and the same in bfloat16 beside them;
+  15. training: 3 steps of the rec, det and cls step functions on the
+     committed batches (train_batches.npz) from the shipped assets at
+     full width, float32 with cuDNN deterministic, held to ocrjax's
+     losses, per-leaf update norms and BatchNorm statistics at the bars
+     that expected_jax_train_fp32.json states; bfloat16 losses finite and
+     within its bar of float32's; ms a step (CUDA events); a checkpoint
+     written and read back resumes to the same next loss.
+Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
+7-12, 13 and 14; conv_fused: 4); the counts are set to 0 just before such
+a phase and read just after, in all and by path; the lane phases 2, 3,
+5-8, 10, 11, 12's page calls, 13's page sections and 14 must label on the
+shared path only, phase 9, 12's tiled call and 13's C5 sections on the
+global path only. The last lines are the kernels' JSON
 record, the card's name and power limit, and {"ok": true, "device": ...}.
 """
 
@@ -1414,7 +1435,298 @@ def phase_cli(counters, pages) -> tuple:
     return shared, tiled, walls
 
 
+# the bench report's keys (ocrjax's run_bench report minus its link fields)
+BENCH_KEYS = ("device", "pages", "lines", "upload_bits", "crops_per_sec",
+              "rec_batch_ms", "pages_per_sec_device", "p50_page_latency_ms",
+              "dense_pages_per_sec", "dense_lines_per_sec",
+              "dense_gt_lines_per_page", "dense_det_ms_per_page",
+              "dense_tiles_per_page", "dense_pages_per_sec_device",
+              "roofline", "pages_per_sec_fused", "pages_per_sec_bucketed",
+              "pages_per_sec_fused_windows",
+              "pages_per_sec_bucketed_windows", "pages_per_sec",
+              "pages_per_sec_median", "e2e_batch_ms", "stages_last_window",
+              "windows_detail", "cc_label_launches_by_section")
+# where the bench labels 240x240 grids (K1's shared path) and where it
+# labels C5 tile grids (the general path)
+BENCH_SHARED_SECTIONS = ("windows", "device_ceiling", "latency")
+BENCH_GLOBAL_SECTIONS = ("dense", "dense_ceiling")
+
+
+def _numbers(x, key=""):
+    """(key, value) of every number in a nested report."""
+    if isinstance(x, bool):
+        return
+    if isinstance(x, (int, float)):
+        yield key, x
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _numbers(v, f"{key}.{k}" if key else k)
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            yield from _numbers(v, f"{key}[{i}]")
+
+
+def phase_bench(counters) -> tuple:
+    """run_bench on the committed traffic at the reference's sizes, bf16;
+    its report on a line of its own. Returns (K1 launches by path in the
+    page sections, in the C5 sections, the report)."""
+    import math
+    import numpy as np
+    from ocrjax_torch import bench_lib
+    from ocrjax_torch.api import OcrEngine, asset_config
+    traffic = bench_lib.load_traffic()
+    windows = {}
+    reset(counters)
+    rep = bench_lib.run_bench(traffic=traffic, results_out=windows)
+    launches = read(counters, "bench", ["label_components_cuda"])
+    print("  bench report: " + json.dumps(rep))
+    missing = [k for k in BENCH_KEYS if k not in rep]
+    bad = [k for k, v in _numbers(rep) if not math.isfinite(v)]
+    if missing or bad:
+        fail(f"bench report: missing keys {missing}, non-finite {bad}")
+    if rep["pages_per_sec_device"] < rep["pages_per_sec_fused"]:
+        fail(f"bench: the device ceiling {rep['pages_per_sec_device']} "
+             f"pages/s is below the fused lane's {rep['pages_per_sec_fused']}")
+    sec = rep["cc_label_launches_by_section"]
+    shared = {p: sum(sec[s][p] for s in BENCH_SHARED_SECTIONS)
+              for p in ("shared", "global")}
+    dense = {p: sum(sec[s][p] for s in BENCH_GLOBAL_SECTIONS)
+             for p in ("shared", "global")}
+    if shared["global"] or not shared["shared"]:
+        fail(f"bench page sections: cc_label by path {shared}, not all "
+             f"shared")
+    if dense["shared"] or not dense["global"]:
+        fail(f"bench C5 sections: cc_label by path {dense}, not all global")
+    # the last fused window against a direct float32 run on the same pages
+    eng32 = OcrEngine.from_pretrained(
+        config=asset_config(compute_dtype="float32"))
+    eng32.config = eng32.config.replace(fused_lines_per_page=16)
+    imgs = [np.repeat(p[..., None], 3, axis=2) for p in traffic["pages"]]
+    fp32 = eng32.ocr_batch(imgs, fused=True)
+    pos, _, total = line_agreement(windows["fused"], fp32)
+    # and both against the traffic's ground truth, by position
+    truth = bench_lib.traffic_texts(traffic, "page")
+
+    def exact(res):
+        return sum(line.text in set(t) for r, t in zip(res, truth)
+                   for line in r.lines)
+    n_truth = sum(len(t) for t in truth)
+    print(f"  bench fused window, bf16: {pos}/{total} lines read as the "
+          f"direct fp32 ocr_batch; lines found in the ground truth: bf16 "
+          f"{exact(windows['fused'])}, fp32 {exact(fp32)} of {n_truth}; "
+          f"cc_label by path: page sections {shared}, C5 sections {dense}; "
+          f"launches {launches}")
+    if pos < BF16_AGREE_MIN * total:
+        fail(f"bench fused window agrees with fp32 on {pos}/{total} lines")
+    return shared, dense, rep
+
+
+def phase_e2e(counters) -> dict:
+    """evaluate_e2e's scoring of the committed pages in float32 (held to
+    ocrjax's numbers exactly) and in bfloat16."""
+    import numpy as np
+    from ocrjax_torch.api import OcrEngine, asset_config
+    from ocrjax_torch.train import e2e_eval
+    with np.load(os.path.join(TESTDATA, "e2e_pages.npz")) as f:
+        pages, texts, counts = f["pages"], str(f["texts"]), f["line_counts"]
+    flat = texts.split("\n")
+    gts, k = [], 0
+    for n in counts:
+        gts.append(flat[k:k + int(n)])
+        k += int(n)
+    want = load_json("expected_jax_e2e_fp32.json")
+    keys = ("line_exact_match", "det_recall", "char_error_rate")
+    eng32 = OcrEngine.from_pretrained(
+        config=asset_config(compute_dtype="float32"))
+    reset(counters)
+    got32 = e2e_eval.score_e2e(eng32, list(pages), gts)
+    launches = read(counters, "e2e float32", ["label_components_cuda"])
+    by_path = no_global_ccl("e2e float32")
+    got16 = e2e_eval.score_e2e(OcrEngine.from_pretrained(), list(pages), gts)
+    print(f"  e2e on {len(pages)} pages ({sum(map(len, gts))} lines): fp32 "
+          + json.dumps({k: got32[k] for k in keys}) + ", ocrjax fp32 "
+          + json.dumps({k: want[k] for k in keys}) + ", bf16 "
+          + json.dumps({k: got16[k] for k in keys})
+          + f"; launches {launches}")
+    if any(got32[k] != want[k] for k in keys):
+        fail("e2e: the float32 numbers differ from ocrjax's")
+    return by_path
+
+
+def _train_models(name: str, dtype: str, device: str):
+    """(model, optimizer, step) of one trainer from the shipped asset at
+    full width, each trainer's optimizer at its default lr and steps."""
+    from ocrjax_torch import weights as W
+    from ocrjax_torch.api import ASSETS, asset_config
+    from ocrjax_torch.charset import Charset
+    from ocrjax_torch.models.cls import create_cls
+    from ocrjax_torch.models.crnn import create_crnn
+    from ocrjax_torch.models.db import create_db
+    from ocrjax_torch.train import cls_trainer, det_trainer, rec_trainer
+    from ocrjax_torch.train.optim import train_device
+    want = load_json("expected_jax_train_fp32.json")
+    lr, steps = want["steps"][name]["lr"], want["steps"][name]["steps"]
+    device = train_device(device)           # TF32 off on the card
+    cfg = asset_config(compute_dtype=dtype)
+    flat = W.read_safetensors(os.path.join(ASSETS, f"{name}.safetensors"))[0]
+    if name == "rec":
+        cs = Charset.from_file(os.path.join(ASSETS, "rec.charset.txt"))
+        model = create_crnn(cfg, cs.num_classes)
+    else:
+        model = create_db(cfg) if name == "det" else create_cls(cfg)
+    W.load_model_variables(model, flat)
+    model.to(device)
+    if name == "rec":
+        opt = rec_trainer.rec_optimizer(model, lr, steps)
+        step = rec_trainer.make_train_step(model, opt)
+    elif name == "det":
+        opt = det_trainer.det_optimizer(model, lr, steps)
+        step = det_trainer.make_det_train_step(model, opt, cfg)
+    else:
+        opt = cls_trainer.cls_optimizer(model, lr, steps)
+        step = cls_trainer.make_cls_train_step(
+            model, opt, cfg.rec_mean, cfg.rec_std, antisym=0.5)
+    return model, opt, step
+
+
+def _train_inputs(batches, name: str, i: int, device: str) -> tuple:
+    import numpy as np
+    import torch
+    from ocrjax_torch.train import det_gt
+    if name == "det":
+        pages = batches[f"det{i}_pages"]
+        quads = batches[f"det{i}_quads"]
+        counts = batches[f"det{i}_line_counts"]
+        maps, k = [], 0
+        for n in counts:
+            maps.append(det_gt.db_gt_maps(list(quads[k:k + n]),
+                                          pages.shape[1:]))
+            k += n
+        arrays = (np.repeat(pages[..., None], 3, axis=3),
+                  *(np.stack(m) for m in zip(*maps)))
+    else:
+        keys = (("images", "widths", "labels", "label_lengths")
+                if name == "rec" else ("images", "widths", "labels"))
+        arrays = tuple(batches[f"{name}{i}_{k}"] for k in keys)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
+def _loss_of(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def phase_train(device: str = "cuda") -> dict:
+    """3 steps of each trainer's step function on the committed batches at
+    full width: float32 against ocrjax's numbers at the bars the JSON
+    states, bfloat16 within its bar of float32, ms a step, and a
+    checkpoint round trip. Returns ms a step by trainer and dtype."""
+    import numpy as np
+    import torch
+    from ocrjax_torch import weights as W
+    want = load_json("expected_jax_train_fp32.json")
+    bars, noise = want["bars"], set(want["noise_leaves"])
+    # determinism for the parity runs (cuDNN's conv and LSTM backward pick
+    # nondeterministic algorithms otherwise); TF32 stays off
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    with np.load(os.path.join(TESTDATA, "train_batches.npz")) as f:
+        batches = {k: f[k] for k in f.files}
+    ms, worst = {}, {}
+    for name in ("rec", "det", "cls"):
+        inputs = [_train_inputs(batches, name, i, device) for i in range(3)]
+        losses32 = None
+        for dtype in ("float32", "bfloat16"):
+            model, opt, step = _train_models(name, dtype, device)
+            before = W.model_variables(model)
+            losses, times = [], []
+            for x in inputs + inputs[1:] * 2:       # 3 parity + 4 timed
+                if device == "cuda":
+                    s = torch.cuda.Event(enable_timing=True)
+                    e = torch.cuda.Event(enable_timing=True)
+                    s.record()
+                    loss = _loss_of(step(*x))
+                    e.record()
+                    e.synchronize()
+                    times.append(s.elapsed_time(e))
+                else:
+                    loss = _loss_of(step(*x))
+                losses.append(float(loss))
+                if len(losses) == 3:
+                    after = W.model_variables(model)
+            if times:
+                ms[f"{name}_{dtype}"] = statistics.median(times[3:])
+            losses = losses[:3]
+            if not all(np.isfinite(losses)):
+                fail(f"train {name} {dtype}: losses {losses}")
+            if dtype == "float32":
+                losses32 = losses
+                worst[name] = _hold_train(name, losses, before, after,
+                                          want[name], bars, noise)
+                if name == "rec":
+                    _round_trip(name, model, opt, step, inputs[0], device)
+            else:
+                gap = max(abs(a - b) / abs(b) for a, b in
+                          zip(losses, losses32))
+                worst[name]["bf16_loss_rel"] = gap
+                print(f"  train {name} bf16: losses {losses} (fp32 "
+                      f"{losses32}), worst relative gap {gap:.5f}")
+                if gap > bars["bf16_loss_rtol"]:
+                    fail(f"train {name} bf16 losses {losses} are not within "
+                         f"{bars['bf16_loss_rtol']} of fp32's {losses32}")
+    print("  train worst gaps against ocrjax fp32 (bars "
+          + json.dumps(bars) + "): " + json.dumps(worst))
+    print("  train ms a step (CUDA events, median of 4 steps after 3): "
+          + json.dumps({k: round(v, 3) for k, v in ms.items()}))
+    return ms
+
+
+def _hold_train(name, losses, before, after, want, bars, noise) -> dict:
+    """float32 steps against ocrjax's: losses, the per-leaf update norms
+    (noise leaves aside) and the BatchNorm statistics' norms."""
+    import numpy as np
+    loss_gap = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses, want["losses"]))
+    upd_gap, upd_leaf = 0.0, None
+    for k, w in want["update_norms"].items():
+        if k in noise:
+            continue
+        g = float(np.linalg.norm(after[k] - before[k]))
+        rel = abs(g - w) / max(w, 1e-12)
+        if rel > upd_gap:
+            upd_gap, upd_leaf = rel, k
+    bn_gap = max([abs(float(np.linalg.norm(after[k])) - w) / max(w, 1e-12)
+                  for k, w in want["bn_norms"].items()] or [0.0])
+    print(f"  train {name} fp32: losses {losses} (ocrjax {want['losses']}); "
+          f"worst gaps: loss {loss_gap:.2e}, update norm {upd_gap:.2e} "
+          f"({upd_leaf}), BN statistics {bn_gap:.2e}")
+    if (loss_gap > bars["loss_rtol"] or upd_gap > bars["update_rtol"]
+            or bn_gap > bars["bn_rtol"]):
+        fail(f"train {name} fp32 is off ocrjax's numbers beyond the bars "
+             f"{bars}")
+    return {"loss_rel": loss_gap, "update_rel": upd_gap, "bn_rel": bn_gap}
+
+
+def _round_trip(name, model, opt, step, x, device) -> None:
+    """A checkpoint written and read back resumes to the same next loss."""
+    from ocrjax_torch.train import checkpoint
+    path = os.path.join(PKG, "_build", "ckpt",         # git-ignored
+                        f"{name}_{opt.count}.safetensors")
+    checkpoint.save_train_state(path, opt.count, model, opt)
+    model2, opt2, step2 = _train_models(name, "float32", device)
+    if checkpoint.load_train_state(path, model2, opt2) != opt.count:
+        fail("checkpoint: the step did not round-trip")
+    a, b = float(_loss_of(step(*x))), float(_loss_of(step2(*x)))
+    print(f"  train {name} checkpoint round trip: next loss {a} live, "
+          f"{b} resumed")
+    if abs(a - b) > 1e-6 * abs(a):
+        fail(f"checkpoint round trip: next loss {b} != {a}")
+
+
 def main() -> int:
+    # cuBLAS's deterministic mode (phase 15) needs this before it starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -1469,6 +1781,12 @@ def main() -> int:
     print("== 12. the CLI on PNG files")
     ccl_phases["12"], ccl_phases["12 tiled"], cli_ms = phase_cli(counters,
                                                                  pages)
+    print("== 13. the bench (run_bench on the committed traffic)")
+    ccl_phases["13"], ccl_phases["13 C5"], _ = phase_bench(counters)
+    print("== 14. e2e_eval on the committed pages")
+    ccl_phases["14"] = phase_e2e(counters)
+    print("== 15. training: rec, det and cls steps at full width")
+    phase_train()
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],

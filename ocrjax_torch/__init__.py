@@ -12,13 +12,17 @@ from ocrjax_torch.config import OcrConfig
 __version__ = "0.1.0"
 
 
+_API = ("OcrEngine", "get_default_engine", "detect", "recognize", "ocr")
+
+
 def __getattr__(name):
-    # Lazy: the models load only when the engine is used.
-    if name == "OcrEngine":
+    # Lazy: the models load only when the engine is used; the default
+    # engine of detect / recognize / ocr is built on their first call.
+    if name in _API:
         from ocrjax_torch import api
 
-        return api.OcrEngine
+        return getattr(api, name)
     raise AttributeError(f"module 'ocrjax_torch' has no attribute {name!r}")
 
 
-__all__ = ["OcrConfig", "Charset", "OcrEngine", "__version__"]
+__all__ = ["OcrConfig", "Charset", *_API, "__version__"]

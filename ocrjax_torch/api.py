@@ -315,3 +315,31 @@ class OcrEngine:
         fails to decode yields an empty result."""
         from ocrjax_torch import tiling
         return tiling.ocr_tiled_batch(self, images, beam=beam)
+
+
+# ---------------------------------------------------------------------------
+# Module-level convenience: one default engine, built on first use
+# ---------------------------------------------------------------------------
+
+_default_engine: Optional[OcrEngine] = None
+
+
+def get_default_engine() -> OcrEngine:
+    """The engine of detect / recognize / ocr: from_pretrained() on the
+    card, built on the first call."""
+    global _default_engine
+    if _default_engine is None:
+        _default_engine = OcrEngine.from_pretrained()
+    return _default_engine
+
+
+def recognize(image: ImageLike, beam: bool = False) -> RecResult:
+    return get_default_engine().recognize(image, beam=beam)
+
+
+def detect(image: ImageLike) -> List[DetBox]:
+    return get_default_engine().detect(image)
+
+
+def ocr(image: ImageLike, beam: bool = False) -> OcrResult:
+    return get_default_engine().ocr(image, beam=beam)

@@ -6,12 +6,13 @@ Usage:
   python -m ocrjax_torch.cli detect page.png --json
   python -m ocrjax_torch.cli ocr page1.png page2.png --beam
   python -m ocrjax_torch.cli ocr huge.png --tiled
+  python -m ocrjax_torch.cli bench [--pages 16 --lines 256 --repeats 3]
 
 It runs on the card; --cpu runs it on the CPU instead, and without CUDA and
 without --cpu it fails with the engine's error. --profile DIR writes a
 torch.profiler trace there. --viz draws with PIL and exits 2 where PIL is
-absent. `bench` is parsed but refused (exit 2): the port's bench comes
-with the synthetic renderer of the training slice (ROADMAP.md).
+absent. `bench` runs bench_lib.run_bench on the committed traffic (or
+--traffic FILE) and prints its report as one JSON line.
 """
 
 from __future__ import annotations
@@ -25,11 +26,6 @@ import time
 from typing import List
 
 from ocrjax_torch.imageio import ImageDecodeError
-
-BENCH_REFUSAL = ("error: the port's bench is not written yet: it renders its "
-                 "traffic with the synthetic page renderer, which comes to "
-                 "ocrjax_torch with the training slice (ROADMAP.md)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="ocrjax_torch", description=__doc__,
@@ -104,12 +100,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="C4 through the fused lane (fixed per-page line "
                          "capacity)")
 
-    sp = sub.add_parser("bench", help="throughput/latency benchmarks (not "
-                                      "ported yet: exits 2)")
+    sp = sub.add_parser("bench", help="throughput/latency benchmarks")
     common(sp)
     sp.add_argument("--pages", type=int, default=16)
     sp.add_argument("--lines", type=int, default=256)
     sp.add_argument("--repeats", type=int, default=3)
+    sp.add_argument("--traffic", default=None, metavar="FILE",
+                    help="traffic .npz (bench_lib.render_traffic; default: "
+                         "the committed testdata/bench_traffic.npz)")
     return p
 
 
@@ -186,8 +184,13 @@ def main(argv=None) -> int:
 
 def _main(args) -> int:
     if args.cmd == "bench":
-        print(BENCH_REFUSAL, file=sys.stderr)
-        return 2
+        from ocrjax_torch import bench_lib
+        report = bench_lib.run_bench(
+            pages=args.pages, lines=args.lines, repeats=args.repeats,
+            weights=args.weights, cpu=args.cpu,
+            traffic=args.traffic or bench_lib.TRAFFIC)
+        print(json.dumps(report))
+        return 0
 
     if not args.images:
         print("error: no input images", file=sys.stderr)

@@ -9,7 +9,10 @@ channels, a palette is looked up, alpha is dropped (not composited).
 
 Any other file (another format, or a 16-bit, sub-byte or interlaced PNG) is
 decoded with cv2 where it can be imported; without cv2 it raises
-ImageDecodeError naming the format. Nothing is guessed.
+ImageDecodeError naming the format. Nothing is guessed: a malformed PNG (a
+truncated or mis-sized chunk, a bad CRC, dimensions its data does not fill)
+raises ImageDecodeError, an OSError, which every batch lane catches to
+isolate the page as the reference isolates a file cv2 cannot read.
 """
 
 from __future__ import annotations
@@ -100,8 +103,14 @@ def decode_png(data: bytes):
     ihdr, palette, idat = None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
+            if len(body) != 13:
+                raise ImageDecodeError(
+                    f"PNG: IHDR chunk of {len(body)} bytes, not 13")
             ihdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
+            if len(body) % 3:
+                raise ImageDecodeError(
+                    f"PNG: PLTE chunk of {len(body)} bytes")
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
@@ -110,6 +119,8 @@ def decode_png(data: bytes):
     W, H, depth, ctype, _, _, interlace = ihdr
     if depth != 8 or interlace or ctype not in _CHANNELS:
         return None
+    if W == 0 or H == 0:
+        raise ImageDecodeError(f"PNG: empty image {W}x{H} in IHDR")
     bpp = _CHANNELS[ctype]
     try:
         raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)

@@ -4,9 +4,10 @@ Layers follow the flax modules' arithmetic, not PyTorch defaults:
   * SAME padding is XLA's: for stride 2 on even sizes it pads (0, 1), where
     a symmetric torch `padding=` would shift the grid by a pixel;
   * parameters stay float32 and are cast to the compute dtype in each
-    layer (flax's param_dtype / dtype split); BatchNorm is inference-only
-    and evaluates (x - mean) * (rsqrt(var + eps) * scale) + bias in the
-    compute dtype, in flax's order;
+    layer (flax's param_dtype / dtype split); BatchNorm in eval mode
+    evaluates (x - mean) * (rsqrt(var + eps) * scale) + bias in the
+    compute dtype, in flax's order; in train mode it follows flax's
+    nn.BatchNorm(momentum=0.9) (see BatchNorm);
   * the BiLSTM's reverse direction reads each sample's valid prefix only,
     like flax nn.RNN(reverse=True, keep_order=True, seq_lengths=...).
 Modules are NCHW. The LSTM and the projection run in float32 (the
@@ -71,7 +72,16 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW channels, in the input's dtype."""
+    """BatchNorm over NCHW channels with flax's semantics.
+
+    Eval mode normalizes by the running statistics in the input's dtype.
+    Train mode (module.training, as the trainers set it) is flax 0.12's
+    nn.BatchNorm(use_running_average=False, momentum=0.9), not
+    torch.nn.BatchNorm2d's: the batch statistics are taken in float32 even
+    under bf16, the variance is the biased fast form mean(x^2) - mean(x)^2
+    clamped at 0, the normalization runs in float32 and is cast back, and
+    the running update is 0.9 * old + (1 - 0.9) * batch with that biased
+    variance (BatchNorm2d keeps the unbiased one)."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -83,6 +93,19 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         dt = x.dtype
         shape = (1, -1, 1, 1)
+        if self.training:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(0.9 * self.running_mean
+                                        + (1 - 0.9) * mean)
+                self.running_var.copy_(0.9 * self.running_var
+                                       + (1 - 0.9) * var)
+            mul = torch.rsqrt(var + BN_EPS) * self.weight
+            y = (xf - mean.view(shape)) * mul.view(shape)
+            return (y + self.bias.view(shape)).to(dt)
         mean = self.running_mean.to(dt).view(shape)
         var = self.running_var.to(dt).view(shape)
         mul = torch.rsqrt(var + BN_EPS) * self.weight.to(dt).view(shape)

@@ -1,8 +1,9 @@
-"""DB (Differentiable Binarization) text detector for inference (port of
+"""DB (Differentiable Binarization) text detector (port of
 ocrjax/models/db.py). Backbone -> FPN -> prob head; NCHW; float32
 parameters computed in the compute dtype, with the head's last layer in
-float32 as in the reference. The threshold head (train-only) is carried so
-a det asset loads completely, and runs only when asked.
+float32 as in the reference. The threshold head runs when asked and in
+train mode, which also returns the differentiable binarization
+sigmoid(k (prob - thresh)), k = 50, for train.det_trainer.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import torch.nn.functional as F
 
 from ocrjax_torch.models.crnn import BatchNorm, Conv2d, ConvBNRelu, \
     compute_dtype
+
+DB_K = 50.0  # steepness of the differentiable binarization
 
 
 class ResBlock(nn.Module):
@@ -135,12 +138,16 @@ class DBHead(nn.Module):
 
 class DBDetector(nn.Module):
     """forward(images (B, 3, S, S) normalized) -> {'prob': (B, S/hs, S/hs)
-    float32} (+ 'thresh' when with_thresh)."""
+    float32} (+ 'thresh' when with_thresh or in train mode, + 'binary' in
+    train mode)."""
 
     def __init__(self, channels: Sequence[int] = (64, 128, 256, 512),
                  inner: int = 96, blocks_per_stage: int = 2,
                  head_stride: int = 1, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.arch = dict(channels=tuple(channels), inner=inner,
+                         blocks_per_stage=blocks_per_stage,
+                         head_stride=head_stride)
         self.backbone = Backbone(channels, blocks_per_stage, dtype)
         self.fpn = FPN(channels, inner, dtype)
         self.head = DBHead(inner, head_stride, dtype)
@@ -150,8 +157,11 @@ class DBDetector(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         fused = self.fpn(self.backbone(images))
         out = {"prob": torch.sigmoid(self.head(fused))}
-        if with_thresh:
+        if with_thresh or self.training:
             out["thresh"] = torch.sigmoid(self.thresh_head(fused))
+        if self.training:
+            out["binary"] = torch.sigmoid(DB_K * (out["prob"]
+                                                  - out["thresh"]))
         return out
 
 

@@ -1,5 +1,5 @@
-"""Batched CTC decoding on the device, greedy and beam (port of the decoding
-half of ocrjax/ops/ctc.py)."""
+"""Batched CTC on the device: greedy and beam decoding, and the training
+loss (port of ocrjax/ops/ctc.py)."""
 
 from __future__ import annotations
 
@@ -174,3 +174,66 @@ def ctc_beam_decode(logits: torch.Tensor, lengths: torch.Tensor, *,
                      / torch.clamp(n_best, min=1))
     tokens = torch.gather(toks, 1, best[..., None].expand(B, 1, L))[:, 0]
     return tokens, n_best, conf
+
+
+# ---------------------------------------------------------------------------
+# Loss (training)
+# ---------------------------------------------------------------------------
+
+LOG_EPSILON = -1e5     # optax's stand-in for log(0)
+
+
+def ctc_loss_per_seq(logits: torch.Tensor, logit_lengths: torch.Tensor,
+                     labels: torch.Tensor, label_lengths: torch.Tensor, *,
+                     blank: int = 0) -> torch.Tensor:
+    """(B,) negative log-likelihood of each label sequence: optax.ctc_loss's
+    alpha recursion over blank-inserted labels, step for step.
+
+    Not F.ctc_loss: that one divides by the target lengths under
+    reduction="mean" and returns inf for an alignment that cannot exist
+    (more labels than frames), where optax's log(0) is LOG_EPSILON, so an
+    infeasible sample gives a large finite loss. logits (B, T, C);
+    labels (B, U) padded; frames t >= logit_lengths and labels
+    u >= label_lengths are padding."""
+    B, T, _ = logits.shape
+    U = labels.shape[1]
+    dev = logits.device
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = labels.long().to(dev)
+    pad_t = (torch.arange(T, device=dev)[None, :]
+             >= logit_lengths.to(dev)[:, None]).float()        # (B, T)
+    # repeat[b, n]: label n equals label n + 1 (no direct emit-emit step)
+    repeat = torch.cat([(labels[:, :-1] == labels[:, 1:]).float(),
+                        torch.zeros((B, 1), device=dev)], dim=1)
+    lp_phi = logp[:, :, blank]                                  # (B, T)
+    lp_emit = torch.gather(logp, 2, labels[:, None, :].expand(B, T, U))
+    phi = torch.full((B, U + 1), LOG_EPSILON, device=dev)
+    phi[:, 0] = 0.0
+    emit = torch.full((B, U), LOG_EPSILON, device=dev)
+
+    def add_phi(p, added):
+        return torch.cat([p[:, :1], torch.logaddexp(p[:, 1:], added)], 1)
+
+    for t in range(T):
+        prev_phi_orig, prev_emit = phi, emit
+        prev_phi = add_phi(phi, prev_emit + LOG_EPSILON * repeat)
+        e_t = lp_emit[:, t]
+        next_emit = torch.logaddexp(prev_phi[:, :-1] + e_t, prev_emit + e_t)
+        next_phi = prev_phi + lp_phi[:, t:t + 1]
+        next_phi = add_phi(next_phi, prev_emit + lp_phi[:, t:t + 1]
+                           + LOG_EPSILON * (1.0 - repeat))
+        pad = pad_t[:, t:t + 1]
+        emit = pad * prev_emit + (1.0 - pad) * next_emit
+        phi = pad * prev_phi_orig + (1.0 - pad) * next_phi
+    last = add_phi(phi, emit)
+    n = label_lengths.long().to(dev)
+    return -torch.gather(last, 1, n[:, None])[:, 0]
+
+
+def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor,
+             labels: torch.Tensor, label_lengths: torch.Tensor, *,
+             blank: int = 0) -> torch.Tensor:
+    """Mean CTC loss over the batch: the plain mean of ctc_loss_per_seq,
+    as ocrjax takes it (no division by the label lengths)."""
+    return ctc_loss_per_seq(logits, logit_lengths, labels, label_lengths,
+                            blank=blank).mean()

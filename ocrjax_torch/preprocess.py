@@ -24,6 +24,7 @@ for bit:
 
 from __future__ import annotations
 
+import logging
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -31,6 +32,8 @@ import torch
 
 from ocrjax_torch import imageio
 from ocrjax_torch.config import OcrConfig
+
+_log = logging.getLogger("ocrjax_torch.preprocess")
 
 ImageLike = Union[str, np.ndarray]
 
@@ -265,8 +268,11 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
                 # canonical as load_image makes it: RGB, dark on light
                 originals_out[i] = load_image(img,
                                               auto_invert=cfg.auto_invert)
-        except (OSError, ValueError):
+        except Exception as e:  # noqa: BLE001 - per-page isolation
+            # as ocrjax's chunk decode: any failure empties this page only
             ok[j] = False
+            _log.warning("page %d decode failed (isolated): %s: %s",
+                         int(i), type(e).__name__, e)
     return grays, scales, valid_hw, ok, colorful
 
 
@@ -300,6 +306,14 @@ def pack_nibbles(gray: np.ndarray) -> np.ndarray:
     bay = np.tile(_BAYER4_I, (H // 4 + 1, W // 4 + 1))[:H, :W]
     q = (((gray.astype(np.uint16) << 5) + bay) // 544).astype(np.uint8)
     return (q[..., 0::2] << 4) | q[..., 1::2]
+
+
+def unpack_nibbles_host(packed: np.ndarray) -> np.ndarray:
+    """Host inverse of pack_nibbles: levels 0, 17, ..., 255."""
+    hi = (packed >> 4) * np.uint8(17)
+    lo = (packed & 0xF) * np.uint8(17)
+    return np.stack([hi, lo], axis=-1).reshape(
+        packed.shape[:-1] + (packed.shape[-1] * 2,))
 
 
 def pack_for_upload(gray: np.ndarray, cfg: OcrConfig) -> np.ndarray:
@@ -353,4 +367,13 @@ def det_normalize_gray(gray_u8: torch.Tensor, mean, std) -> torch.Tensor:
     s = torch.tensor(std, dtype=torch.float32, device=gray_u8.device)
     x = gray_u8.float()[:, None] * (1.0 / 255.0)
     # XLA folds the division by a constant into a reciprocal multiply
+    return (x - m[None, :, None, None]) * (1.0 / s)[None, :, None, None]
+
+
+def det_normalize(canvas_u8: torch.Tensor, mean, std) -> torch.Tensor:
+    """(B, S, S, 3) uint8 RGB -> (B, 3, S, S) float32, ImageNet-normalized
+    per channel in det_normalize_gray's arithmetic (the trainers' input)."""
+    m = torch.tensor(mean, dtype=torch.float32, device=canvas_u8.device)
+    s = torch.tensor(std, dtype=torch.float32, device=canvas_u8.device)
+    x = canvas_u8.float().permute(0, 3, 1, 2) * (1.0 / 255.0)
     return (x - m[None, :, None, None]) * (1.0 / s)[None, :, None, None]

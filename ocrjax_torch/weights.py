@@ -1,5 +1,6 @@
-"""Reads the shipped safetensors assets and carries flax-layout weights into
-the port's modules.
+"""Reads and writes safetensors weights in flax's flat layout, and carries
+them between that layout and the port's modules (both ways: the writer is
+how ocrjax loads what the port trains).
 
 The reader is plain numpy (the safetensors layout: an 8-byte little-endian
 header length, a JSON header of {name: {dtype, shape, data_offsets}} plus
@@ -20,8 +21,9 @@ Layout maps (the port of ocrjax/weights.py's tables):
 from __future__ import annotations
 
 import json
+import os
 import struct
-from typing import Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +37,7 @@ def read_safetensors(path: str) -> Tuple[Dict[str, np.ndarray],
                                          Dict[str, str]]:
     """-> ({flax_path: array}, metadata)."""
     with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
+        header = _read_header(f)
         data = f.read()
     meta = header.pop("__metadata__", None) or {}
     out = {}
@@ -50,11 +51,91 @@ def read_safetensors(path: str) -> Tuple[Dict[str, np.ndarray],
     return out, meta
 
 
+_NAMES = {np.dtype(v): k for k, v in _DTYPES.items()}
+SEP = "/"
+
+
+def _read_header(f) -> dict:
+    (n,) = struct.unpack("<Q", f.read(8))
+    return json.loads(f.read(n))
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested {'params': {'Conv_0': {...}}} -> {"params/Conv_0/...": leaf};
+    a flat dict comes back as it is."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{SEP}{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            out.update(flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+def save_variables(path: str, variables: Mapping[str, Any],
+                   metadata: Mapping[str, Any] = None) -> None:
+    """Writes a flax-layout variables tree ({'params': {...},
+    'batch_stats': {...}}, nested or already flat with "/" keys) to one
+    safetensors file that ocrjax.weights.load_variables reads. Arrays are
+    written C-contiguous in their own dtype; metadata values as strings."""
+    flat = {}
+    for k, v in flatten(variables).items():
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        # np.array, not np.ascontiguousarray, which makes a scalar 1-d
+        flat[k] = np.array(v, order="C")
+    header: Dict[str, Any] = {}
+    offset = 0
+    for key in sorted(flat):
+        a = flat[key]
+        if a.dtype not in _NAMES:
+            raise ValueError(f"unsupported dtype {a.dtype} for {key}")
+        header[key] = {"dtype": _NAMES[a.dtype], "shape": list(a.shape),
+                       "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    if metadata:
+        header["__metadata__"] = {k: str(v) for k, v in metadata.items()}
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)     # data starts 8-byte aligned
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for key in sorted(flat):
+            f.write(flat[key].tobytes())
+
+
+def load_metadata(path: str) -> Dict[str, str]:
+    """The file's `__metadata__` (header only)."""
+    with open(path, "rb") as f:
+        return dict(_read_header(f).get("__metadata__") or {})
+
+
+def save_charset_sidecar(weights_path: str, charset) -> str:
+    """Writes the charset beside the weights as `<stem>.charset.txt`, the
+    file from_pretrained reads; returns its path."""
+    p = os.path.splitext(weights_path)[0] + ".charset.txt"
+    charset.to_file(p)
+    return p
+
+
 def _f2t(a: np.ndarray, kind: str) -> np.ndarray:
     if kind == "conv":
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
     if kind == "convT":
         return np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
+    if kind == "linear":
+        return np.ascontiguousarray(a.T)
+    return np.ascontiguousarray(a)
+
+
+def _t2f(a: np.ndarray, kind: str) -> np.ndarray:
+    """The inverse of _f2t."""
+    if kind == "conv":
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if kind == "convT":
+        return np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1])
     if kind == "linear":
         return np.ascontiguousarray(a.T)
     return np.ascontiguousarray(a)
@@ -182,6 +263,59 @@ def _from_table(flat: Mapping, table: Table) -> Tuple[Dict, List[str]]:
     return sd, [fk for fk, _, _ in table]
 
 
+def _lstm_t2f(flat: Dict[str, np.ndarray], sd: Mapping, flax_cell: str,
+              prefix: str) -> None:
+    """One torch nn.LSTM -> one flax OptimizedLSTMCell; the flax bias is
+    bias_ih + bias_hh (bias_ih stays zero when carried from flax)."""
+    H = sd[f"{prefix}.weight_hh_l0"].shape[1]
+    b = sd[f"{prefix}.bias_ih_l0"] + sd[f"{prefix}.bias_hh_l0"]
+    for k, g in enumerate(_GATES):
+        rows = slice(k * H, (k + 1) * H)
+        flat[f"{flax_cell}/i{g}/kernel"] = np.ascontiguousarray(
+            sd[f"{prefix}.weight_ih_l0"][rows].T)
+        flat[f"{flax_cell}/h{g}/kernel"] = np.ascontiguousarray(
+            sd[f"{prefix}.weight_hh_l0"][rows].T)
+        flat[f"{flax_cell}/h{g}/bias"] = np.ascontiguousarray(b[rows])
+
+
+def _np_sd(sd: Mapping) -> Dict[str, np.ndarray]:
+    """Copies (a CPU tensor's .numpy() would share its memory, and the
+    variables would follow later training)."""
+    return {k: (v.detach().float().cpu().numpy().copy()
+                if isinstance(v, torch.Tensor) else np.array(v))
+            for k, v in sd.items()}
+
+
+def _to_table(sd: Mapping, table: Table) -> Dict[str, np.ndarray]:
+    return {fk: _t2f(sd[tk], kind) for fk, tk, kind in table}
+
+
+def crnn_variables(sd: Mapping) -> Dict[str, np.ndarray]:
+    """models.crnn.CRNN state dict -> flat flax variables (the inverse of
+    crnn_state_dict)."""
+    sd = _np_sd(sd)
+    flat = _to_table(sd, _crnn_key_table())
+    for bl, pfx in [("BiLSTM_0", "lstm0"), ("BiLSTM_1", "lstm1")]:
+        for cell, d in [("OptimizedLSTMCell_0", "fwd"),
+                        ("OptimizedLSTMCell_1", "bwd")]:
+            _lstm_t2f(flat, sd, f"params/{bl}/{cell}", f"{pfx}.{d}")
+    return flat
+
+
+def db_variables(sd: Mapping, arch: Mapping) -> Dict[str, np.ndarray]:
+    """models.db.DBDetector state dict -> flat flax variables (the inverse
+    of db_state_dict)."""
+    return _to_table(_np_sd(sd), _db_key_table(
+        tuple(arch["channels"]), int(arch["blocks_per_stage"]),
+        int(arch["head_stride"])))
+
+
+def cls_variables(sd: Mapping) -> Dict[str, np.ndarray]:
+    """models.cls.OrientationClassifier state dict -> flat flax variables
+    (the inverse of cls_state_dict)."""
+    return _to_table(_np_sd(sd), _cls_key_table())
+
+
 def crnn_state_dict(flat: Mapping) -> Tuple[Dict[str, np.ndarray], List[str]]:
     """flax CRNN variables -> (models.crnn.CRNN state dict, flax keys read)."""
     sd, used = _from_table(flat, _crnn_key_table())
@@ -221,6 +355,44 @@ def conv_bn_from_flax(flat: Mapping, module: str, eps: float = 1e-5
     return (torch.from_numpy(np.ascontiguousarray(w)),
             torch.from_numpy(scale.astype(np.float32)),
             torch.from_numpy(bias.astype(np.float32)))
+
+
+def model_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A CRNN, DBDetector or OrientationClassifier -> its flat flax
+    variables (params and batch_stats), for save_variables."""
+    from ocrjax_torch.models.cls import OrientationClassifier
+    from ocrjax_torch.models.crnn import CRNN
+    from ocrjax_torch.models.db import DBDetector
+    sd = model.state_dict()
+    if isinstance(model, CRNN):
+        return crnn_variables(sd)
+    if isinstance(model, DBDetector):
+        return db_variables(sd, model.arch)
+    if isinstance(model, OrientationClassifier):
+        return cls_variables(sd)
+    raise TypeError(f"no flax layout for {type(model).__name__}")
+
+
+def load_model_variables(model: torch.nn.Module, flat: Mapping) -> None:
+    """Flat flax variables -> the model's parameters and BN statistics
+    (strict, as load_into)."""
+    from ocrjax_torch.models.cls import OrientationClassifier
+    from ocrjax_torch.models.crnn import CRNN
+    from ocrjax_torch.models.db import DBDetector
+    if isinstance(model, CRNN):
+        sd = crnn_state_dict(flat)[0]
+    elif isinstance(model, DBDetector):
+        sd = db_state_dict(flat, model.arch)[0]
+    elif isinstance(model, OrientationClassifier):
+        sd = cls_state_dict(flat)[0]
+    else:
+        raise TypeError(f"no flax layout for {type(model).__name__}")
+    device = next(model.parameters()).device
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(torch.from_numpy(np.array(sd[k])).to(device))
+    if set(sd) != set(model.state_dict()):
+        raise KeyError("flax variables do not cover the model exactly")
 
 
 def load_into(module: torch.nn.Module, sd: Mapping[str, np.ndarray]) -> None:

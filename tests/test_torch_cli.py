@@ -3,11 +3,12 @@ decoder it rests on (ocrjax_torch/imageio.py) against cv2.imread.
 
 CLI: both run in process with --cpu on the same PNG files and the shipped
 assets at --det-max-side 512; texts identical, quads within 0.02 px after
-the CLI's 0.01 rounding, the same exit codes (1 for a missing file, 2 for
-no input, a charset of the wrong size and, in the port, `bench` and --viz
-without PIL). PNG: every colour type of 8-bit depth and all five scanline
-filters, byte for byte equal to cv2.imread(IMREAD_COLOR) + BGR -> RGB,
-decoded with cv2 blocked from importing.
+the CLI's 0.01 rounding, the same exit codes (1 for a missing file, the
+port's bench traffic file included, 2 for no input, a charset of the wrong
+size and, in the port, --viz without PIL). PNG: every colour type of
+8-bit depth and all five scanline filters, byte for byte equal to
+cv2.imread(IMREAD_COLOR) + BGR -> RGB, decoded with cv2 blocked from
+importing.
 """
 
 import contextlib
@@ -227,8 +228,11 @@ def test_cli_exit_codes(files, tmp_path, monkeypatch):
     assert _run(tcli, ["recognize", "/nope/missing.png", "--cpu"])[0] == 1
     assert _run(jcli, ["recognize", "/nope/missing.png", "--cpu"])[0] == 1
     assert _run(tcli, ["ocr", "--cpu"])[0] == 2
-    rc, _, err = _run(tcli, ["bench", "--cpu"])
-    assert rc == 2 and "bench" in err and "ROADMAP" in err
+    # bench runs (tests/test_torch_bench.py); a missing traffic file is a
+    # missing input file
+    rc, _, err = _run(tcli, ["bench", "--cpu", "--traffic",
+                             "/nope/missing.npz"])
+    assert rc == 1 and "missing.npz" in err
     bad = tmp_path / "bad_charset.txt"
     bad.write_text("a\nb\n")
     for module in (tcli, jcli):

@@ -46,6 +46,25 @@ The guard re-renders the curl inputs, re-derives the fold and re-runs the
 curved masks; the lane outputs are regenerated only by --write, or alone
 by --write-optin.
 
+The bench, e2e_eval and the trainers (chip_smoke.py phases 13-15) read
+three more inputs, rendered here because the card's machine has no PIL:
+  * bench_traffic.npz: run_bench's traffic in its seeds and order
+    (RandomState(0): 256 strips at width 320, then 16 pages at 960; dense
+    page s at RandomState(1000 + s), 3072x2048 with 200 lines), with the
+    ground-truth texts and quads;
+  * e2e_pages.npz (evaluate_e2e's 8 pages, seed 123, 640 px, and their
+    texts) and expected_jax_e2e_fp32.json (ocrjax's fp32 line exact match,
+    detection recall and CER on them);
+  * train_batches.npz (3 rec batches of train_rec, 3 det pages batches of
+    train_det with their quads, 3 cls batches of train_cls, each from its
+    trainer's RandomState(0)) and expected_jax_train_fp32.json: 3 steps of
+    each ocrjax step function from the shipped assets at full width in
+    float32: the losses, and per parameter leaf the norm of the update and
+    of the new BatchNorm statistics, with the bars the card is held to.
+The guard re-renders every input with ocrjax.train.synth; the JAX numbers
+are regenerated by --write, or with the other two alone by
+--write-bench-train (~3 min of CPU).
+
 Regenerate (after an intended change to the renderer, weights or
 pipeline) with:
     JAX_PLATFORMS=cpu python tests/test_torch_fixture.py --write
@@ -599,6 +618,234 @@ def write_optin_fixture() -> None:
     _write_json(CURL_EXPECTED, jax_curl_expected(curl))
 
 
+BENCH_TRAFFIC = os.path.join(TESTDATA, "bench_traffic.npz")
+E2E_PAGES = os.path.join(TESTDATA, "e2e_pages.npz")
+E2E_EXPECTED = os.path.join(TESTDATA, "expected_jax_e2e_fp32.json")
+TRAIN_BATCHES = os.path.join(TESTDATA, "train_batches.npz")
+TRAIN_EXPECTED = os.path.join(TESTDATA, "expected_jax_train_fp32.json")
+# the card's bars for the float32 training steps (chip_smoke.py phase 15),
+# relative: losses; per parameter leaf, the norm of the 3 steps' update
+# (Adam divides each gradient by its own root mean square, so a leaf whose
+# gradient cancels, as the stem BatchNorm's where the fast variance
+# mean(x^2) - mean(x)^2 cancels on white pages, moves by rounding: 1.2%
+# between torch and XLA on the CPU); the norms of the new BatchNorm
+# statistics (1.9e-4 there on the CPU); bf16 losses against fp32's
+TRAIN_BARS = {"loss_rtol": 1e-3, "update_rtol": 5e-2, "bn_rtol": 1e-3,
+              "bf16_loss_rtol": 0.05}
+# a bias that a train-mode BatchNorm follows: its exact gradient is 0, so
+# Adam steps it on rounding noise in both packages (not compared)
+TRAIN_NOISE_LEAVES = ("params/DBHead_0/ConvTranspose_0/bias",
+                      "params/DBHead_1/ConvTranspose_0/bias")
+TRAIN_STEPS = {"rec": (1e-3, 1500), "det": (3e-4, 1200), "cls": (1e-3, 1500)}
+CLS_WIDTHS = (64, 128, 192, 320)
+
+
+def _charset():
+    from ocrjax.charset import Charset
+    return Charset.from_file(os.path.join(ROOT, "assets", "rec.charset.txt"))
+
+
+def _texts(lists) -> dict:
+    flat = [t for ts in lists for t in ts]
+    return {"texts": np.asarray("\n".join(flat)),
+            "line_counts": np.asarray([len(ts) for ts in lists], np.int32)}
+
+
+def render_bench_traffic() -> dict:
+    """run_bench's traffic from ocrjax.train.synth, in run_bench's order,
+    as ocrjax_torch.bench_lib.render_traffic lays it out."""
+    from ocrjax.train import synth
+    charset, cfg = _charset(), asset_config()
+    n, W = cfg.line_bucket_for_count(256), 320
+    rng = np.random.RandomState(0)
+    strips = np.zeros((n, cfg.rec_height, W), np.uint8)
+    widths = np.full((n,), W, np.int32)
+    strip_texts = []
+    for i in range(n):
+        t = synth.random_text(rng, charset, 4, 12)
+        s = synth.render_line(t, cfg.rec_height)
+        w = min(s.shape[1], W)
+        strips[i, :, :w] = s[:, :w]
+        widths[i] = w
+        strip_texts.append(t)
+    pages = [synth.render_page(rng, charset, size=(cfg.det_max_side,) * 2)
+             for _ in range(16)]
+    dense = [synth.render_page_dense(np.random.RandomState(1000 + s),
+                                     charset, size=(3072, 2048),
+                                     n_lines=200) for s in range(3)]
+    pt, dt = _texts([p[2] for p in pages]), _texts([d[2] for d in dense])
+    return {"strips": strips, "strip_widths": widths,
+            "strip_texts": np.asarray("\n".join(strip_texts)),
+            "pages": np.stack([p[0] for p in pages]),
+            "page_quads": np.concatenate([np.stack(p[1]) for p in pages]),
+            "page_texts": pt["texts"], "page_line_counts": pt["line_counts"],
+            "dense": np.stack([d[0] for d in dense]),
+            "dense_texts": dt["texts"],
+            "dense_line_counts": dt["line_counts"]}
+
+
+def render_e2e_pages() -> dict:
+    """evaluate_e2e's pages: RandomState(123), 8 pages of 640 px."""
+    from ocrjax.train import synth
+    charset, rng = _charset(), np.random.RandomState(123)
+    pages = [synth.render_page(rng, charset, size=(640, 640))
+             for _ in range(8)]
+    return {"pages": np.stack([p[0] for p in pages]),
+            **_texts([p[2] for p in pages])}
+
+
+def jax_e2e_expected() -> dict:
+    from ocrjax.api import OcrEngine
+    from ocrjax.train.e2e_eval import evaluate_e2e
+    eng = OcrEngine.from_pretrained(config=asset_config(
+        compute_dtype="float32"))
+    return {"seed": 123, "n_pages": 8, "size": 640,
+            "compute_dtype": "float32", **evaluate_e2e(eng)}
+
+
+def render_train_batches() -> dict:
+    """3 batches of each trainer, as its loop draws them from
+    RandomState(0) at its defaults: rec make_line_batch(64, 192,
+    max_len=10); det pages of make_det_batch(8, 320) with their quads (the
+    card builds db_gt_maps from them); cls make_line_batch at widths 64,
+    128, 192 with train_cls's knobs, snap_rows_to_ink and flip_half."""
+    from ocrjax.train import cls_trainer, synth
+    charset = _charset()
+    out = {}
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        lb = synth.make_line_batch(rng, charset, 64, 192, 32, max_len=10)
+        for k in ("images", "widths", "labels", "label_lengths"):
+            out[f"rec{i}_{k}"] = getattr(lb, k)
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        pages = [synth.render_page(rng, charset, size=(320, 320),
+                                   n_lines=(3, 8)) for _ in range(8)]
+        out[f"det{i}_pages"] = np.stack([p[0] for p in pages])
+        out[f"det{i}_quads"] = np.concatenate([np.stack(p[1])
+                                               for p in pages])
+        out[f"det{i}_line_counts"] = np.asarray([len(p[1]) for p in pages],
+                                                np.int32)
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        w = CLS_WIDTHS[i % len(CLS_WIDTHS)]
+        lb = synth.make_line_batch(
+            rng, charset, 64, w, height=32, p_space=0.2, p_word=0.5,
+            noise=0.02, quantize_p=0.3, max_rotation=3.0,
+            max_len=max(4, w // 12))
+        cls_trainer.snap_rows_to_ink(rng, lb)
+        out[f"cls{i}_labels"] = cls_trainer.flip_half(rng, lb)
+        out[f"cls{i}_images"], out[f"cls{i}_widths"] = lb.images, lb.widths
+    return out
+
+
+def det_batch_maps(batches: dict, i: int):
+    """(images (8, 320, 320, 3), gt_shrink, gt_thresh, thresh_mask) of det
+    batch i, with ocrjax's db_gt_maps (make_det_batch's arrays)."""
+    from ocrjax.train.det_gt import db_gt_maps
+    pages = batches[f"det{i}_pages"]
+    quads, counts = batches[f"det{i}_quads"], batches[f"det{i}_line_counts"]
+    maps, k = [], 0
+    for n in counts:
+        maps.append(db_gt_maps(list(quads[k:k + n]), pages.shape[1:]))
+        k += n
+    return (np.repeat(pages[..., None], 3, axis=3),
+            *(np.stack(m) for m in zip(*maps)))
+
+
+def _leaf_norms(before: dict, after: dict) -> tuple:
+    updates = {k: float(np.linalg.norm(after[k] - before[k]))
+               for k in before if k.startswith("params/")}
+    stats = {k: float(np.linalg.norm(after[k]))
+             for k in before if k.startswith("batch_stats/")}
+    return updates, stats
+
+
+def jax_train_expected(batches: dict) -> dict:
+    """3 steps of each ocrjax step function from the shipped assets at full
+    width in float32, with each trainer's tx at its default lr and steps."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from ocrjax import weights as JW
+    from ocrjax.models.cls import create_cls
+    from ocrjax.models.crnn import create_crnn
+    from ocrjax.models.db import create_db
+    from ocrjax.train import cls_trainer, det_trainer, rec_trainer
+    from ocrjax_torch.weights import flatten
+    cfg, charset = asset_config(compute_dtype="float32"), _charset()
+
+    def load(name):
+        return JW.load_variables(os.path.join(ROOT, "assets",
+                                              f"{name}.safetensors"))
+
+    def flat(tree):
+        return flatten(jax.tree.map(np.asarray, dict(tree)))
+
+    def warm_tx(name):
+        lr, steps = TRAIN_STEPS[name]
+        return optax.chain(optax.clip_by_global_norm(5.0), optax.adam(
+            optax.warmup_cosine_decay_schedule(
+                0.0, lr, min(100, steps // 10 + 1), steps)))
+
+    out = {"bars": TRAIN_BARS, "noise_leaves": list(TRAIN_NOISE_LEAVES),
+           "compute_dtype": "float32",
+           "steps": {k: {"lr": v[0], "steps": v[1]}
+                     for k, v in TRAIN_STEPS.items()}}
+    # rec
+    v = load("rec")
+    tx = warm_tx("rec")
+    step = rec_trainer.make_train_step(
+        create_crnn(cfg, charset.num_classes), tx)
+    p, bs, st, losses = v["params"], v["batch_stats"], tx.init(
+        v["params"]), []
+    for i in range(3):
+        p, bs, st, loss = step(p, bs, st, *(jnp.asarray(
+            batches[f"rec{i}_{k}"]) for k in (
+                "images", "widths", "labels", "label_lengths")))
+        losses.append(float(loss))
+    upd, stats = _leaf_norms(flat(v), flat({"params": p, "batch_stats": bs}))
+    out["rec"] = {"losses": losses, "update_norms": upd, "bn_norms": stats}
+    # det
+    v = load("det")
+    tx = warm_tx("det")
+    step = det_trainer.make_det_train_step(create_db(cfg), tx, cfg)
+    p, bs, st, losses = v["params"], v["batch_stats"], tx.init(
+        v["params"]), []
+    for i in range(3):
+        p, bs, st, loss, _ = step(p, bs, st, *map(
+            jnp.asarray, det_batch_maps(batches, i)))
+        losses.append(float(loss))
+    upd, stats = _leaf_norms(flat(v), flat({"params": p, "batch_stats": bs}))
+    out["det"] = {"losses": losses, "update_norms": upd, "bn_norms": stats}
+    # cls
+    v = load("cls")
+    lr, steps = TRAIN_STEPS["cls"]
+    tx = optax.adam(optax.schedules.cosine_decay_schedule(lr, steps,
+                                                          alpha=0.1))
+    step = cls_trainer.make_cls_train_step(
+        create_cls(cfg), tx, cfg.rec_mean, cfg.rec_std, antisym=0.5)
+    p, st, losses = v["params"], tx.init(v["params"]), []
+    for i in range(3):
+        p, st, loss = step(p, st, *(jnp.asarray(batches[f"cls{i}_{k}"])
+                                    for k in ("images", "widths", "labels")))
+        losses.append(float(loss))
+    upd, _ = _leaf_norms(flat(v), flat({"params": p}))
+    out["cls"] = {"losses": losses, "update_norms": upd, "bn_norms": {}}
+    return out
+
+
+def write_bench_train_fixture() -> None:
+    """The bench, e2e and training files alone (--write does them with
+    everything else)."""
+    np.savez_compressed(BENCH_TRAFFIC, **render_bench_traffic())
+    np.savez_compressed(E2E_PAGES, **render_e2e_pages())
+    _write_json(E2E_EXPECTED, jax_e2e_expected())
+    batches = render_train_batches()
+    np.savez_compressed(TRAIN_BATCHES, **batches)
+    _write_json(TRAIN_EXPECTED, jax_train_expected(batches))
+
+
 def _write_json(path, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=1)
@@ -625,6 +872,62 @@ def write_fixture() -> None:
     np.savez_compressed(C5, **c5)
     _write_json(C5_EXPECTED, jax_c5_expected(c5))
     write_optin_fixture()
+    write_bench_train_fixture()
+
+
+def test_bench_traffic_is_current():
+    """bench_traffic.npz is run_bench's traffic from ocrjax.train.synth at
+    the reference's sizes, and bench_lib reads it."""
+    from ocrjax_torch import bench_lib
+    committed = bench_lib.load_traffic(BENCH_TRAFFIC)
+    got = render_bench_traffic()
+    assert sorted(committed) == sorted(got)
+    for k, v in got.items():
+        np.testing.assert_array_equal(committed[k], v, err_msg=k)
+    assert committed["strips"].shape == (256, 32, 320)
+    assert committed["pages"].shape == (16, SIZE, SIZE)
+    assert committed["dense"].shape == (3, 3072, 2048)
+    dense = bench_lib.traffic_texts(committed, "dense")
+    assert [len(t) for t in dense] == [200, 200, 200]
+    assert len(bench_lib.traffic_texts(committed, "strip")) == 256
+    assert sum(map(len, bench_lib.traffic_texts(committed, "page"))) == \
+        len(committed["page_quads"])
+
+
+def test_e2e_and_train_fixtures_are_current():
+    """The e2e pages and the training batches re-render bit for bit; the
+    expectations cover every parameter leaf of the shipped assets."""
+    committed = np.load(E2E_PAGES)
+    got = render_e2e_pages()
+    for k, v in got.items():
+        np.testing.assert_array_equal(committed[k], v, err_msg=k)
+    with open(E2E_EXPECTED) as f:
+        e2e = json.load(f)
+    assert (e2e["seed"], e2e["n_pages"], e2e["size"]) == (123, 8, 640)
+    assert 0.5 < e2e["line_exact_match"] <= 1.0
+    committed = np.load(TRAIN_BATCHES)
+    got = render_train_batches()
+    assert sorted(committed.files) == sorted(got)
+    for k, v in got.items():
+        np.testing.assert_array_equal(committed[k], v, err_msg=k)
+    with open(TRAIN_EXPECTED) as f:
+        want = json.load(f)
+    assert want["bars"] == TRAIN_BARS
+    assert want["noise_leaves"] == list(TRAIN_NOISE_LEAVES)
+    for name in ("rec", "det", "cls"):
+        keys = _flat_keys(name)
+        assert set(want[name]["update_norms"]) == {
+            k for k in keys if k.startswith("params/")}, name
+        assert set(want[name]["bn_norms"]) == {
+            k for k in keys if k.startswith("batch_stats/")}, name
+        assert len(want[name]["losses"]) == 3
+        assert all(np.isfinite(want[name]["losses"]))
+
+
+def _flat_keys(name: str) -> set:
+    from ocrjax_torch.weights import read_safetensors
+    return set(read_safetensors(os.path.join(
+        ROOT, "assets", f"{name}.safetensors"))[0])
 
 
 def test_fixture_pages_and_expected_outputs_are_current():
@@ -794,7 +1097,13 @@ if __name__ == "__main__":
                    FLIP, FLIP_EXPECTED, C5, C5_EXPECTED]
     elif "--write-optin" in sys.argv:
         write_optin_fixture()
+    elif "--write-bench-train" in sys.argv:
+        write_bench_train_fixture()
+    bench_train = [BENCH_TRAFFIC, E2E_PAGES, E2E_EXPECTED, TRAIN_BATCHES,
+                   TRAIN_EXPECTED]
     if written or "--write-optin" in sys.argv:
-        for path in written + [OPTIN_EXPECTED, INT8_FOLD, CURL,
-                               CURL_EXPECTED]:
-            print(f"wrote {path} ({os.path.getsize(path)} B)")
+        written += [OPTIN_EXPECTED, INT8_FOLD, CURL, CURL_EXPECTED]
+    if "--write" in sys.argv or "--write-bench-train" in sys.argv:
+        written += bench_train
+    for path in written:
+        print(f"wrote {path} ({os.path.getsize(path)} B)")

@@ -36,7 +36,14 @@ def test_no_jax_or_ocrjax_imports():
             "ocrjax_torch/bench_conv.py", "ocrjax_torch/tiling.py",
             "ocrjax_torch/ops/conv_fused.py", "ocrjax_torch/cli.py",
             "ocrjax_torch/imageio.py",
-            "ocrjax_torch/models/db_int8.py"} <= names
+            "ocrjax_torch/models/db_int8.py", "ocrjax_torch/bench_lib.py",
+            "ocrjax_torch/utils/roofline.py",
+            "ocrjax_torch/train/synth.py", "ocrjax_torch/train/optim.py",
+            "ocrjax_torch/train/rec_trainer.py",
+            "ocrjax_torch/train/det_trainer.py",
+            "ocrjax_torch/train/cls_trainer.py",
+            "ocrjax_torch/train/det_crops.py",
+            "ocrjax_torch/train/e2e_eval.py"} <= names
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad
@@ -47,7 +54,10 @@ def test_api_import_pulls_in_no_jax():
             "ocrjax_torch.api_det, ocrjax_torch.bucketing, "
             "ocrjax_torch.bench_conv, ocrjax_torch.ops.conv_fused, "
             "ocrjax_torch.tiling, ocrjax_torch.cli, ocrjax_torch.imageio, "
-            "ocrjax_torch.models.db_int8; "
+            "ocrjax_torch.models.db_int8, ocrjax_torch.bench_lib, "
+            "ocrjax_torch.train.rec_trainer, ocrjax_torch.train.det_trainer, "
+            "ocrjax_torch.train.cls_trainer, ocrjax_torch.train.det_crops, "
+            "ocrjax_torch.train.e2e_eval, ocrjax_torch.train.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
