@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
   0. environment: the card's name and power limit, torch and CUDA versions,
      the build of every kernel under ocrjax_torch/csrc (one nvcc per
-     source, all started together) and, where cuobjdump is found, how
+     source, and g++ for the native host library csrc/ocr_native.cpp, all
+     started together) and, where cuobjdump is found, how
      often HGMMA occurs in the built conv_fused library's SASS;
   1. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes and on edge cases, with the path every launch took.
@@ -36,7 +37,9 @@ Phases, in order; any failure exits non-zero:
      and an oversize tilted page; line strips): ocr_batch(fused=True) with
      every reroute firing, ocr_batch(fused=False), ocr() and detect() on the
      oversize page, recognize_strips(), held to the JAX engine's float32
-     outputs at the same bar;
+     outputs at the same bar; the fused lane's log lines (the redo counts
+     rotated, saturated, colorful) equal ocrjax's on the same batch
+     (expected_jax_logs.json);
   6. the same lanes in bfloat16 with device time per stage;
   7. beam CTC in float32: the fused lane (the 16 pages of phase 2), the
      bucketed lane on the mixed batch and recognize_strips with beam=True,
@@ -104,12 +107,25 @@ Phases, in order; any failure exits non-zero:
      that expected_jax_train_fp32.json states; bfloat16 losses finite and
      within its bar of float32's; ms a step (CUDA events); a checkpoint
      written and read back resumes to the same next loss.
+  16. parallel (ocrjax_torch.parallel.mesh), in a child process that is
+     one NCCL rank on the card (world size 1; the card machine has one
+     GPU, so multi-rank results are held on the CPU by the tests): the
+     dp-sharded fused program on phase 2's 16 pages in float32 and sharded
+     tiled serving on the A4 pages, each against the unsharded run at the
+     goldens' bar; one sharded rec step at full width against the
+     unsharded step at phase 15's loss and update bars; the sharded and
+     the unsharded fused call's ms; then dryrun_multichip(1) on a CPU rank;
+  17. the native host library: built and taken by the pack and the chunk
+     decode in phase 3, its canvases and packed bytes bit-equal to the
+     numpy twins on every fixture page (phase 2's, the lane fixture's and
+     the A4 pages), host ms of a 16-page chunk's decode and pack on both
+     routes in turns, and phase 3's fused window on both routes in turns.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
-7-12, 13 and 14; conv_fused: 4); the counts are set to 0 just before such
-a phase and read just after, in all and by path; the lane phases 2, 3,
-5-8, 10, 11, 12's page calls, 13's page sections and 14 must label on the
-shared path only, phase 9, 12's tiled call and 13's C5 sections on the
-global path only. The last lines are the kernels' JSON
+7-12, 13, 14 and 16; conv_fused: 4); the counts are set to 0 just before
+such a phase and read just after, in all and by path; the lane phases 2,
+3, 5-8, 10, 11, 12's page calls, 13's page sections, 14 and 16's fused
+call must label on the shared path only, phase 9, 12's tiled call, 13's
+C5 sections and 16's tiled call on the global path only. The last lines are the kernels' JSON
 record, the card's name and power limit, and {"ok": true, "device": ...}.
 """
 
@@ -117,6 +133,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import glob
 import json
 import os
@@ -194,14 +211,21 @@ def time_ms(fn, n: int = 25, warmup: int = 3) -> float:
 
 
 def build_kernels():
+    """One nvcc for each .cu source and one g++ for the native host
+    library, all started together."""
     from ocrjax_torch.ops import _cuda
+    from ocrjax_torch.postprocess import native_boxes
     names = sorted(os.path.splitext(os.path.basename(p))[0]
                    for p in glob.glob(os.path.join(_cuda.CSRC, "*.cu")))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        native = pool.submit(native_boxes.build_library)
         list(pool.map(_cuda.build, names))
+        native.result()
     print(f"built {names} in {time.perf_counter() - t0:.2f} s "
-          f"(per source: {_cuda.build_seconds})")
+          f"(per source: {_cuda.build_seconds}); the native host library "
+          f"(g++) in {native_boxes.build_seconds} s (None: a build of this "
+          f"source was there)")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if os.path.exists(cuobjdump):
         sass = subprocess.run(
@@ -646,12 +670,35 @@ def phase_bf16(pages, fp32_results, counters, reps: int = 3):
     return eng, launches, ccl_by_path
 
 
+@contextlib.contextmanager
+def capture_logs(name: str):
+    """The (level, message, fields) records of logger `name` from INFO up
+    while the block runs."""
+    import logging
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append((record.levelname, record.getMessage(),
+                            dict(getattr(record, "fields", {}))))
+    logger = logging.getLogger(name)
+    h, level = Keep(), logger.level
+    logger.addHandler(h)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(h)
+        logger.setLevel(level)
+
+
 def phase_lanes_fp32(eng, fixture, counters):
     """Every staged and rerouted lane, float32, against the JAX engine."""
     import numpy as np
     batch, strips, named, want = fixture
     reset(counters)
-    fused = eng.ocr_batch(batch, fused=True)
+    with capture_logs("ocrjax_torch.fused") as logs:
+        fused = eng.ocr_batch(batch, fused=True)
     bucketed = eng.ocr_batch(batch, fused=False)
     big = eng.ocr(named["big"])
     det_big = eng.detect(named["big"])
@@ -676,6 +723,11 @@ def phase_lanes_fp32(eng, fixture, counters):
                          - np.array(want["strips"]["conf"])).max())
     if dconf > SCORE_TOL:
         fail(f"recognize_strips: confidence differs by {dconf}")
+    want_logs = [(r["level"], r["msg"], r["fields"]) for r in
+                 load_json("expected_jax_logs.json")["fused"]]
+    if logs != want_logs:
+        fail(f"fused lane log lines {logs} != ocrjax's {want_logs}")
+    print(f"  fused lane log lines equal ocrjax's on the mixed batch: {logs}")
     n_lines = sum(len(r.lines) for r in fused + bucketed + [big])
     print(f"  fp32 lanes: fused batch (tilted, colour, 40-line and oversize "
           f"tilted pages rerouted), bucketed batch, ocr() and detect() on "
@@ -1501,11 +1553,12 @@ def phase_bench(counters) -> tuple:
     eng32 = OcrEngine.from_pretrained(
         config=asset_config(compute_dtype="float32"))
     eng32.config = eng32.config.replace(fused_lines_per_page=16)
-    imgs = [np.repeat(p[..., None], 3, axis=2) for p in traffic["pages"]]
+    imgs = [np.repeat(p[..., None], 3, axis=2)
+            for p in traffic["pages"][:rep["pages"]]]
     fp32 = eng32.ocr_batch(imgs, fused=True)
     pos, _, total = line_agreement(windows["fused"], fp32)
     # and both against the traffic's ground truth, by position
-    truth = bench_lib.traffic_texts(traffic, "page")
+    truth = bench_lib.traffic_texts(traffic, "page")[:rep["pages"]]
 
     def exact(res):
         return sum(line.text in set(t) for r, t in zip(res, truth)
@@ -1724,6 +1777,258 @@ def _round_trip(name, model, opt, step, x, device) -> None:
         fail(f"checkpoint round trip: next loss {b} != {a}")
 
 
+# ---------------------------------------------------------------------------
+# 16. parallel: the sharded paths at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+def _fused_lines(out, charset, i) -> list:
+    """(string, quad, score) of page i's valid lines, slot order."""
+    import numpy as np
+    v = out["valid"][i]
+    return [(charset.decode(out["tokens"][i, k][:out["n_tokens"][i, k]]),
+             out["quads"][i, k], float(out["scores"][i, k]))
+            for k in np.where(v)[0]]
+
+
+def _same_lines(tag, got, want) -> float:
+    """Identical strings, boxes within BOX_TOL, scores within SCORE_TOL;
+    returns the worst box gap."""
+    import numpy as np
+    if [t for t, _, _ in got] != [t for t, _, _ in want]:
+        fail(f"{tag}: strings differ from the unsharded run's")
+    worst = 0.0
+    for (_, qa, sa), (_, qb, sb) in zip(got, want):
+        worst = max(worst, float(np.abs(np.asarray(qa)
+                                        - np.asarray(qb)).max()))
+        if abs(sa - sb) > SCORE_TOL:
+            fail(f"{tag}: score {sa} != unsharded {sb}")
+    if worst > BOX_TOL:
+        fail(f"{tag}: boxes {worst} px from the unsharded run's")
+    return worst
+
+
+def _parallel_child(rank, init_file, out_file):
+    """Phase 16's checks in a process of its own: one NCCL rank on the card.
+    Writes its numbers and K1's launches by path to out_file."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ocrjax_torch import fused as F
+    from ocrjax_torch import preprocess
+    from ocrjax_torch import weights as W
+    from ocrjax_torch.api import OcrEngine, asset_config
+    from ocrjax_torch.ops.cc_label import label_components_cuda
+    from ocrjax_torch.parallel import mesh as M
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=1)
+    try:
+        mesh = M.make_mesh(n_dp=1, n_tp=1)
+        out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+               "backend": dist.get_backend()}
+        counters = [label_components_cuda]
+        # the fused program over the 16 pages of phase 2, float32
+        pages, _ = load_fixture()
+        eng = OcrEngine.from_pretrained(
+            config=asset_config(compute_dtype="float32"))
+        cfg = eng.config
+        K = cfg.fused_lines_per_page
+        Wb = cfg.rec_bucket_for_width(10 * cfg.rec_height)
+        grays, _, valid_hw, _, _ = preprocess.decode_chunk_to_gray(
+            pages, range(len(pages)), cfg)
+        packed = preprocess.pack_for_upload(grays, cfg)
+        wh = valid_hw[:, ::-1].astype(np.float32).copy()
+        thr = (float(cfg.det_thresh), float(cfg.det_box_thresh),
+               float(cfg.det_unclip_ratio), float(cfg.det_min_box_size))
+        plain = F.FusedOcr(eng, K, Wb)
+        sharded = M.make_sharded_fused_ocr_fn(eng, mesh, K, Wb)
+        packed_d, wh_d = (torch.from_numpy(a).cuda() for a in (packed, wh))
+        want = {k: v.cpu().numpy() for k, v in
+                plain(packed_d, thr, wh_d).items()}
+        reset(counters)
+        got = {k: v.cpu().numpy() for k, v in
+               sharded(packed_d, thr, wh_d).items()}
+        out["ccl_fused"] = no_global_ccl("sharded fused")
+        worst = max(_same_lines(f"sharded fused page {i}",
+                                _fused_lines(got, eng.charset, i),
+                                _fused_lines(want, eng.charset, i))
+                    for i in range(len(pages)))
+        out["fused_lines"] = int(want["valid"].sum())
+        out["fused_worst_box_px"] = worst
+        out["fused_ms"] = {
+            "sharded": time_ms(lambda: sharded(packed_d, thr, wh_d), n=5),
+            "unsharded": time_ms(lambda: plain(packed_d, thr, wh_d), n=5)}
+        # tiled serving over the A4 pages, float32, shipped tile settings
+        c5, cwant = load_c5_fixture()
+        batch = [c5[k] for k in cwant["batch"]]
+        want_t = eng.ocr_tiled_batch(batch)
+        M.shard_tiled_serving(eng, mesh)
+        reset(counters)
+        got_t = eng.ocr_tiled_batch(batch)
+        out["ccl_tiled"] = only_global_ccl("sharded tiled")
+        M.shard_tiled_serving(eng, None)
+
+        def lines(r):
+            return [(x.text, x.box.quad, x.box.score) for x in r.lines]
+        out["tiled_worst_box_px"] = max(
+            _same_lines(f"sharded C5 page {i}", lines(a), lines(b))
+            for i, (a, b) in enumerate(zip(got_t, want_t)))
+        out["tiled_lines"] = sum(len(r.lines) for r in want_t)
+        # rec steps at full width, sharded against unsharded: phase 15's
+        # three batches (the warmup's first update has learning rate 0)
+        want_tr = load_json("expected_jax_train_fp32.json")
+        bars, noise = want_tr["bars"], set(want_tr["noise_leaves"])
+        with np.load(os.path.join(TESTDATA, "train_batches.npz")) as f:
+            arrays = [[f[f"rec{i}_{k}"] for k in (
+                "images", "widths", "labels", "label_lengths")]
+                for i in range(3)]
+        losses, updates = [], []
+        for shard in (False, True):
+            model, opt, step = _train_models("rec", "float32", "cuda")
+            before = W.model_variables(model)
+            if shard:
+                M.prepare_training(mesh, model, opt)
+                step = M.make_sharded_rec_train_step(model, opt, mesh)
+            losses.append([float(step(*(
+                M.shard_batch(mesh, a) if shard else
+                tuple(torch.from_numpy(x).cuda() for x in a))))
+                for a in arrays])
+            after = W.model_variables(model)
+            updates.append({k: float(np.linalg.norm(after[k] - before[k]))
+                            for k in before if k.startswith("params/")
+                            and k not in noise})
+        loss_rel = max(abs(s - u) / abs(u) for s, u in zip(*losses[::-1]))
+        upd_rel = max(abs(updates[1][k] - w) / max(w, 1e-12)
+                      for k, w in updates[0].items())
+        out["rec_step"] = {"losses": losses, "loss_rel": loss_rel,
+                           "update_rel": upd_rel}
+        if loss_rel > bars["loss_rtol"] or upd_rel > bars["update_rtol"]:
+            fail(f"sharded rec step: loss gap {loss_rel}, update gap "
+                 f"{upd_rel} beyond {bars}")
+        with open(out_file, "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel() -> dict:
+    """The sharded fused program, sharded tiled serving and a sharded rec
+    step in a child at world size 1 over NCCL, each against its unsharded
+    run; then dryrun_multichip(1) on a CPU rank. Returns K1's launches by
+    path in the child's fused and tiled runs."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from ocrjax_torch.parallel.dryrun import dryrun_multichip
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pg_",
+                                     dir=os.path.join(PKG, "_build")) as d:
+        out_file = os.path.join(d, "parallel.json")
+        try:
+            mp.spawn(_parallel_child, args=(os.path.join(d, "pg"), out_file),
+                     nprocs=1, join=True)
+            with open(out_file) as f:
+                r = json.load(f)
+        except Exception as e:  # noqa: BLE001 - a failed child fails here
+            fail(f"phase 16: the NCCL child failed: {e}")
+    print(f"  {r['backend']} mesh {r['mesh']}: sharded fused program on "
+          f"{r['fused_lines']} lines equals the unsharded one (worst box "
+          f"{r['fused_worst_box_px']:.5f} px), cc_label by path "
+          f"{r['ccl_fused']}; sharded tiled serving on the A4 pages "
+          f"({r['tiled_lines']} lines, worst box "
+          f"{r['tiled_worst_box_px']:.5f} px), cc_label by path "
+          f"{r['ccl_tiled']}")
+    print(f"  sharded rec steps at full width: losses "
+          f"{r['rec_step']['losses']} (unsharded, sharded), worst loss gap "
+          f"{r['rec_step']['loss_rel']:.2e}, worst update-norm gap "
+          f"{r['rec_step']['update_rel']:.2e}")
+    print("  fused 16-page call, ms (CUDA events, median of 5): "
+          + json.dumps({k: round(v, 3) for k, v in r["fused_ms"].items()}))
+    line = dryrun_multichip(1)
+    if not line.startswith("dryrun_multichip OK"):
+        fail(f"dryrun_multichip(1): {line}")
+    return {"16 fused": r["ccl_fused"], "16 tiled": r["ccl_tiled"]}
+
+
+# ---------------------------------------------------------------------------
+# 17. the native host library
+# ---------------------------------------------------------------------------
+
+def phase_native(eng16, pages, lane_fixture, native_in_phase3,
+                 reps: int = 3) -> dict:
+    """The C++ host library: built and taken on phase 3's pages, bit-equal
+    to the numpy twins on every fixture page, host ms of a 16-page chunk's
+    decode and pack on both routes in turns, and phase 3's fused window on
+    both routes in turns (a note, not a claim)."""
+    import numpy as np
+    import torch
+    from ocrjax_torch import preprocess as P
+    from ocrjax_torch.postprocess import native_boxes as NB
+    if not NB.native_available():
+        fail("the native host library did not build")
+    if min(native_in_phase3.values()) == 0:
+        fail(f"phase 3 did not take the native library: calls "
+             f"{native_in_phase3}")
+    cfg = eng16.config
+    c5, _ = load_c5_fixture()
+    batch, _, named, _ = lane_fixture
+    fixture = ([(f"page{i}", p) for i, p in enumerate(pages[::4])]
+               + [(k, v) for k, v in named.items()
+                  if not k.startswith("strip") and v.ndim >= 2
+                  and v.dtype == np.uint8 and min(v.shape[:2]) >= 64]
+               + [(f"A4 {k}", c5[k]) for k in c5])
+    for tag, img in fixture:
+        a = P.decode_canvas_native(img, cfg)
+        b = P.decode_canvas_luma_first(img, cfg)
+        if not (np.array_equal(a[0], b[0]) and a[1:] == b[1:]):
+            fail(f"native decode of {tag} differs from its numpy twin")
+        if not np.array_equal(P.pack_nibbles(a[0][None]),
+                              P.pack_nibbles_numpy(a[0][None])):
+            fail(f"native pack of {tag} differs from its numpy twin")
+    chunk = pages[:16]
+    ms = {"decode": {"native": [], "numpy": []},
+          "pack": {"native": [], "numpy": []}}
+    for _ in range(reps):
+        for route in ("native", "numpy"):
+            with NB.disabled() if route == "numpy" else \
+                    contextlib.nullcontext():
+                t0 = time.perf_counter()
+                grays = P.decode_chunk_to_gray(chunk, range(len(chunk)),
+                                               cfg)[0]
+                t1 = time.perf_counter()
+                packed = P.pack_nibbles(grays)
+                t2 = time.perf_counter()
+            ms["decode"][route].append((t1 - t0) * 1e3)
+            ms["pack"][route].append((t2 - t1) * 1e3)
+            if route == "native":
+                want = packed
+            elif not np.array_equal(packed, want):
+                fail("a 16-page chunk packs otherwise on the numpy route")
+    host = {s: {r: statistics.median(v) for r, v in d.items()}
+            for s, d in ms.items()}
+    eng16.ocr_batch(pages, fused=True)                 # warm-up
+    pps = {"native": [], "numpy": []}
+    for _ in range(reps):
+        for route in ("native", "numpy"):
+            with NB.disabled() if route == "numpy" else \
+                    contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng16.ocr_batch(pages, fused=True)
+                torch.cuda.synchronize()
+            pps[route].append(len(pages) / (time.perf_counter() - t0))
+    print(f"  native library: built in "
+          f"{NB.build_seconds if NB.build_seconds is not None else 'cached'}"
+          f" s; taken in phase 3 {dict(native_in_phase3)}; decode and pack "
+          f"bit-equal to the numpy twins on {len(fixture)} fixture pages")
+    print("  host ms per 16-page chunk, median of "
+          f"{reps} in turns (host clock): " + json.dumps(
+              {s: {r: round(v, 2) for r, v in d.items()}
+               for s, d in host.items()}))
+    print("  fused window (phase 3's 16 pages, bf16) pages/s in turns: "
+          + json.dumps({r: [round(v, 2) for v in vs]
+                        for r, vs in pps.items()}))
+    return {"host_ms": host, "fused_pages_per_sec": pps}
+
+
+
 def main() -> int:
     # cuBLAS's deterministic mode (phase 15) needs this before it starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -1756,7 +2061,11 @@ def main() -> int:
     ccl_phases = {}
     eng32, fp32, ccl_phases["2"] = phase_fp32(pages, expected, counters)
     print("== 3. fused lane, bfloat16")
+    from ocrjax_torch.preprocess import native_calls
+    before = dict(native_calls)
     eng16, _, ccl_phases["3"] = phase_bf16(pages, fp32, counters)
+    native3 = {k: native_calls[k] - before.get(k, 0)
+               for k in ("pack", "decode")}
     print("== 4. conv bench")
     conv = phase_conv_bench(counters, conv_err)
     print("== 5. staged and rerouted lanes, float32")
@@ -1787,6 +2096,10 @@ def main() -> int:
     ccl_phases["14"] = phase_e2e(counters)
     print("== 15. training: rec, det and cls steps at full width")
     phase_train()
+    print("== 16. parallel: sharded serving and training, NCCL, world size 1")
+    ccl_phases.update(phase_parallel())
+    print("== 17. the native host library")
+    phase_native(eng16, pages, fixture, native3)
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import os
 from typing import List, Mapping, Optional, Sequence
 
@@ -27,6 +26,7 @@ from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.cls import create_cls
 from ocrjax_torch.models.crnn import create_crnn
 from ocrjax_torch.models.db import create_db
+from ocrjax_torch.utils.logging import get_logger, log_fields
 
 ImageLike = preprocess.ImageLike
 Flat = Mapping[str, np.ndarray]   # flax path -> array, as weights reads it
@@ -157,6 +157,8 @@ class OcrEngine:
         self._fused_cache = {}
         self._det = None   # api_det.DetState, built by the staged lanes
         self._tile_fwd = None   # tiling.TileForward, built by the tiled lanes
+        # parallel.mesh.shard_tiled_serving: the tile lanes' dp mesh
+        self.tile_mesh = None
 
     def warn_untrained_cls(self) -> None:
         """Warns once when rec_try_flip runs on a random orientation
@@ -164,10 +166,11 @@ class OcrEngine:
         if self._cls_trained or self._cls_warned:
             return
         self._cls_warned = True
-        logging.getLogger("ocrjax_torch.api").warning(
-            "rec_try_flip is enabled but no trained orientation classifier "
-            "was loaded (assets/cls.safetensors): flip decisions come from "
-            "random weights")
+        log_fields(get_logger("ocrjax_torch.api"), "warning",
+                   "rec_try_flip is enabled but no trained orientation "
+                   "classifier was loaded (assets/cls.safetensors) — flip "
+                   "decisions come from a random-init net",
+                   trained=False)
 
     @classmethod
     def from_pretrained(cls, path: str = None, config: OcrConfig = None,

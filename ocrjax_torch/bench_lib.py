@@ -133,11 +133,15 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
               weights: Optional[str] = None, cpu: bool = False,
               width_bucket: int = 320,
               traffic: Union[str, Dict[str, np.ndarray]] = TRAFFIC,
-              results_out: Optional[Dict] = None) -> Dict:
+              results_out: Optional[Dict] = None,
+              progress: Optional[Dict] = None) -> Dict:
     """The bench report (ocrjax's keys but the link fields). traffic: a
     path or a render_traffic dict, holding at least `pages` pages and the
     strip count of `lines`. results_out, when given, receives the last
-    window's OcrResults of each lane under its name."""
+    window's OcrResults of each lane under its name. progress, when given
+    ({"windows": [], "partial": {}}), is fed as the run goes: each e2e
+    window's pages/s, and the section metrics as they complete (the live
+    feed of bench_main's watchdog)."""
     from ocrjax_torch import fused as F
     from ocrjax_torch import preprocess as P
     from ocrjax_torch import tiling as TL
@@ -195,6 +199,9 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
         times.append(time.perf_counter() - t0)
     report["crops_per_sec"] = n / min(times)
     report["rec_batch_ms"] = min(times) * 1e3
+    if progress is not None:
+        progress["partial"]["crops_per_sec"] = round(
+            report["crops_per_sec"], 0)
     # roofline: counted FLOPs of the timed program (FlopCounterMode runs it
     # once more, outside the timed loop), with the BiLSTM's analytic share
     rec_flops = RL.torch_flops(engine._rec_step, strips_d, widths_d)
@@ -227,6 +234,8 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
             results_out[path] = res
         pps = pages / dt
         windows_detail.append({"path": path, "pages_per_sec": pps})
+        if progress is not None:
+            progress["windows"].append(pps)
         return pps
 
     # warmups at the real batch shape (and the pooled rec count buckets
@@ -261,6 +270,9 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
         times.append(time.perf_counter() - t0)
     ccl["device_ceiling"] = ccl_since(before)
     report["pages_per_sec_device"] = C / min(times)
+    if progress is not None:
+        progress["partial"]["device_pages_per_sec"] = round(
+            report["pages_per_sec_device"], 1)
     fused_flops = RL.torch_flops(fn, grays_d, thr, wh_d)
     roofline.append(RL.stage_entry(f"fused_e2e_chunk{C}", fused_flops,
                                    min(times)))
@@ -275,6 +287,9 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
         lat.append(time.perf_counter() - t0)
     ccl["latency"] = ccl_since(before)
     report["p50_page_latency_ms"] = _percentile(lat, 50) * 1e3
+    if progress is not None:
+        progress["partial"]["p50_page_latency_ms"] = round(
+            report["p50_page_latency_ms"], 1)
 
     before = ccl_counts()
     for path in ("fused", "bucketed"):
@@ -307,6 +322,11 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
     n_dense_lines = sum(len(r.lines) for r in dense_res)
     report["dense_pages_per_sec"] = len(dense_imgs) / dense_dt
     report["dense_lines_per_sec"] = n_dense_lines / dense_dt
+    if progress is not None:
+        progress["partial"]["dense_pages_per_sec"] = round(
+            report["dense_pages_per_sec"], 2)
+        progress["partial"]["dense_lines_per_sec"] = round(
+            report["dense_lines_per_sec"], 0)
     report["dense_gt_lines_per_page"] = round(
         float(np.mean(dense_line_counts)), 1)
 

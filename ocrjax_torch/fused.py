@@ -25,6 +25,7 @@ from ocrjax_torch import geometry, preprocess
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
+from ocrjax_torch.utils.logging import get_logger, log_fields
 from ocrjax_torch.utils.profiling import stage
 
 def top_k(score: torch.Tensor, k: int):
@@ -211,6 +212,9 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
         except torch.cuda.OutOfMemoryError:
             if depth >= 3 or len(packed) <= 1:
                 raise
+            log_fields(get_logger("ocrjax_torch.fused"), "warning",
+                       "device OOM: halving fused chunk",
+                       chunk_pages=len(packed), depth=depth)
             mid = len(packed) // 2
             halves = [_to_host(run(packed[:mid], wh[:mid], depth + 1)),
                       _to_host(run(packed[mid:], wh[mid:], depth + 1))]
@@ -289,6 +293,10 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     redo = [i for i in range(B)
             if results[i] is not None and results[i].truncated and ok[i]]
     if reroute or redo:
+        log_fields(get_logger("ocrjax_torch.fused"), "info",
+                   "fused-path redo through the staged pipeline",
+                   rotated=len(reroute), saturated=len(redo),
+                   colorful=len(colorful))
         pooled = [i for i in reroute + redo if scales[i] >= 0.999]
         for i, res in zip(pooled, bucketing.ocr_pages(
                 engine, [images[i] for i in pooled], beam=beam)):

@@ -10,6 +10,11 @@ Layers follow the flax modules' arithmetic, not PyTorch defaults:
     nn.BatchNorm(momentum=0.9) (see BatchNorm);
   * the BiLSTM's reverse direction reads each sample's valid prefix only,
     like flax nn.RNN(reverse=True, keep_order=True, seq_lengths=...).
+Under a mesh (parallel.mesh) two attributes switch layers to their sharded
+compute: a BatchNorm's `sync` takes the train-mode statistics over the
+whole data-parallel batch, and a layer's `tp` (ConvBNRelu's conv, BiLSTM,
+the CRNN's projection) marks its parameters as column-parallel local
+shards (parallel.mesh.TpGroup). Both are None on an unsharded model.
 Modules are NCHW. The LSTM and the projection run in float32 (the
 reference casts the LSTM's gate products to the compute dtype; the port
 keeps cuDNN's float32 LSTM).
@@ -49,6 +54,8 @@ class Conv2d(nn.Module):
     """Conv with float32 parameters computed in `dtype`. padding: "SAME"
     (XLA convention) or explicit ((top, bottom), (left, right))."""
 
+    tp = None
+
     def __init__(self, cin: int, cout: int, kernel=3, stride=1,
                  padding: Union[str, Tuple] = "SAME", bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -81,7 +88,11 @@ class BatchNorm(nn.Module):
     under bf16, the variance is the biased fast form mean(x^2) - mean(x)^2
     clamped at 0, the normalization runs in float32 and is cast back, and
     the running update is 0.9 * old + (1 - 0.9) * batch with that biased
-    variance (BatchNorm2d keeps the unbiased one)."""
+    variance (BatchNorm2d keeps the unbiased one). With a `sync` the two
+    moments are summed over the data-parallel batch (autograd flows
+    through the sums), as flax takes them over a sharded batch."""
+
+    sync = None
 
     def __init__(self, ch: int):
         super().__init__()
@@ -95,9 +106,14 @@ class BatchNorm(nn.Module):
         shape = (1, -1, 1, 1)
         if self.training:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            if self.sync is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                sq = (xf * xf).mean(dim=(0, 2, 3))
+            else:
+                n = float(xf.numel() // xf.shape[1] * self.sync.dp)
+                mean = self.sync.sum(xf.sum(dim=(0, 2, 3))) / n
+                sq = self.sync.sum((xf * xf).sum(dim=(0, 2, 3))) / n
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.copy_(0.9 * self.running_mean
                                         + (1 - 0.9) * mean)
@@ -124,10 +140,14 @@ class ConvBNRelu(nn.Module):
         self.bn = BatchNorm(cout) if use_bn else None
 
     def forward(self, x):
+        tp = self.conv.tp
+        if tp is not None:              # column-parallel: local channels
+            x = tp.copy(x)
         x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
-        return F.relu(x)
+        x = F.relu(x)
+        return x if tp is None else tp.gather(x, dim=1)
 
 
 def flip_valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -140,17 +160,46 @@ def flip_valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
 
 
+def lstm_column_parallel(lstm: nn.LSTM, x: torch.Tensor, tp) -> torch.Tensor:
+    """nn.LSTM's recurrence over (B, T, F) with each gate's rows split over
+    tp: the local weights hold H/tp rows of each of the i, f, g, o blocks,
+    so each rank computes its slice of every gate and of the cell, and the
+    hidden state is all-gathered every frame for the next contraction."""
+    w_ih, w_hh = lstm.weight_ih_l0, lstm.weight_hh_l0
+    hl = w_hh.shape[0] // 4
+    xw = F.linear(tp.copy(x), w_ih, lstm.bias_ih_l0 + lstm.bias_hh_l0)
+    B, T = x.shape[:2]
+    h = x.new_zeros(B, hl * tp.size)
+    c = x.new_zeros(B, hl)
+    out = []
+    for t in range(T):
+        g = (xw[:, t] + F.linear(tp.copy(h), w_hh)).view(B, 4, hl)
+        c = torch.sigmoid(g[:, 1]) * c + torch.sigmoid(g[:, 0]) * torch.tanh(
+            g[:, 2])
+        h = tp.gather(torch.sigmoid(g[:, 3]) * torch.tanh(c), dim=1)
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
 class BiLSTM(nn.Module):
-    """Bidirectional LSTM with a length-aware reverse pass."""
+    """Bidirectional LSTM with a length-aware reverse pass. With `tp`
+    both directions run lstm_column_parallel in place of cuDNN's LSTM."""
+
+    tp = None
 
     def __init__(self, input_size: int, hidden: int):
         super().__init__()
         self.fwd = nn.LSTM(input_size, hidden, batch_first=True)
         self.bwd = nn.LSTM(input_size, hidden, batch_first=True)
 
+    def _run(self, lstm: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return lstm(x)[0]
+        return lstm_column_parallel(lstm, x, self.tp)
+
     def forward(self, x, lengths):
-        yf, _ = self.fwd(x)
-        yb, _ = self.bwd(flip_valid(x, lengths))
+        yf = self._run(self.fwd, x)
+        yb = self._run(self.bwd, flip_valid(x, lengths))
         return torch.cat([yf, flip_valid(yb, lengths)], dim=-1)
 
 
@@ -159,8 +208,11 @@ class CRNN(nn.Module):
 
     forward(images (B, 1, H, W) normalized grayscale, widths (B,) valid
     pixel widths) -> (logits (B, T, C) float32, frame_lengths (B,) int32),
-    T = W // 4.
+    T = W // 4. With `tp` the projection is column-parallel over the
+    classes.
     """
+
+    tp = None
 
     def __init__(self, num_classes: int, hidden: int = 256,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -212,6 +264,9 @@ class CRNN(nn.Module):
         ).to(torch.int32)
         feats = self.lstm0(feats, frame_lengths)
         feats = self.lstm1(feats, frame_lengths)
+        if self.tp is not None:
+            return self.tp.gather(self.fc(self.tp.copy(feats)), dim=-1), \
+                frame_lengths
         return self.fc(feats), frame_lengths
 
 

@@ -20,11 +20,19 @@ for bit:
     the RGB-first canvas, as in the reference;
   * image paths are decoded by `imageio.read_image`: PNG by the port's own
     decoder (the result of cv2.imread), other formats by cv2 where present.
+As in the reference, the host path takes the native C++ library
+(postprocess.native_boxes) where it builds: `pack_nibbles` packs with
+occ_pack_nibbles, `decode_chunk_to_gray` decodes default-luma pages with
+occ_decode_canvas on a thread pool. The numpy routes above are their exact
+twins (bit for bit) and run where the library does not build.
 """
 
 from __future__ import annotations
 
-import logging
+import collections
+import concurrent.futures
+import ctypes
+import os
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -32,8 +40,12 @@ import torch
 
 from ocrjax_torch import imageio
 from ocrjax_torch.config import OcrConfig
+from ocrjax_torch.postprocess import native_boxes
+from ocrjax_torch.utils.logging import get_logger, log_fields
 
-_log = logging.getLogger("ocrjax_torch.preprocess")
+# what took the native library: "pack" calls and "decode" pages (counted
+# on the calling thread, after the decode pool)
+native_calls = collections.Counter()
 
 ImageLike = Union[str, np.ndarray]
 
@@ -67,7 +79,26 @@ def load_image(image: ImageLike, auto_invert: bool = True) -> np.ndarray:
         raise ValueError(f"expected HWC RGB, got shape {img.shape}")
     if auto_invert and is_inverted(img):
         img = np.asarray(255 - img, np.uint8)
+        _log_inverted()
     return img
+
+
+def _log_inverted() -> None:
+    log_fields(get_logger("ocrjax_torch.preprocess"), "info",
+               "inverted-polarity page: canonicalized to dark-on-light",
+               inverted=True)
+
+
+def native_inverted(img: np.ndarray, stride: int = 4) -> bool:
+    """occ_decode_canvas's polarity test: the LOWER median of the
+    subsampled channel sums below 384. is_inverted takes np.median of the
+    channel means, which averages the two middle samples of an even count;
+    the two differ only when those straddle 128."""
+    sub = img[::stride, ::stride]
+    sums = (sub.astype(np.int32).sum(axis=2) if sub.ndim == 3
+            else 3 * sub.astype(np.int32)).ravel()
+    k = (sums.size + 1) // 2 - 1
+    return int(np.partition(sums, k)[k]) < 384
 
 
 def to_gray(img: np.ndarray) -> np.ndarray:
@@ -161,10 +192,11 @@ def _replicate_pad(canvas: np.ndarray, nh: int, nw: int) -> None:
 
 def decode_canvas_luma_first(img: np.ndarray, cfg: OcrConfig,
                              chroma_thresh: int = 40):
-    """The reference's native canvas decode: uint8 RGB (H, W, 3) or luma
+    """The reference's native canvas decode in numpy, bit for bit
+    occ_decode_canvas (decode_canvas_native): uint8 RGB (H, W, 3) or luma
     (H, W), any polarity -> (gray (S, S) uint8, scale, (nh, nw), chroma
-    fraction). Polarity is canonicalized (cfg.auto_invert) per channel
-    before the luma; a page larger than the canvas is resized AFTER the
+    fraction). Polarity is canonicalized (cfg.auto_invert, native_inverted's
+    test) per channel before the luma; a page larger than the canvas is resized AFTER the
     luma with float32 bilinear weights (half-pixel centres); the chroma
     fraction samples the source at stride 4. Pages that fit the canvas come
     out equal to det_resize_to_canvas + to_gray."""
@@ -174,8 +206,9 @@ def decode_canvas_luma_first(img: np.ndarray, cfg: OcrConfig,
     S = cfg.det_max_side
     h, w = img.shape[:2]
     frac = color_fraction(img, chroma_thresh)
-    if cfg.auto_invert and is_inverted(img):
+    if cfg.auto_invert and native_inverted(img):
         img = np.asarray(255 - img, np.uint8)
+        _log_inverted()
     luma = to_gray(img)
     # the native decode rounds the canvas size half away from zero
     scale = min(S / max(h, w), 1.0)
@@ -221,21 +254,71 @@ def det_resize_to_canvas(img: np.ndarray, cfg: OcrConfig
     return canvas, nh / h, (nh, nw)
 
 
+def decode_canvas_native(img: np.ndarray, cfg: OcrConfig,
+                         chroma_thresh: int = 40, out: np.ndarray = None):
+    """decode_canvas_luma_first in one native call (occ_decode_canvas),
+    writing into `out` ((S, S) uint8, C-contiguous) when given; -> (gray,
+    scale, (nh, nw), chroma fraction), or None without the library or for
+    an input it does not take (not uint8 HW or HWC with 1 or 3 channels)."""
+    lib = native_boxes._load()
+    if lib is None or img.dtype != np.uint8:
+        return None
+    if img.ndim == 2:
+        (h, w), c = img.shape, 1
+    elif img.ndim == 3 and img.shape[2] in (1, 3):
+        h, w, c = img.shape
+    else:
+        return None
+    img = np.ascontiguousarray(img)
+    S = cfg.det_max_side
+    if out is None:
+        out = np.empty((S, S), np.uint8)
+    elif not (out.shape == (S, S) and out.dtype == np.uint8
+              and out.flags.c_contiguous):
+        raise ValueError(f"out must be a C-contiguous ({S}, {S}) uint8 "
+                         f"canvas, got {out.dtype} {out.shape}")
+    meta = np.zeros((5,), np.int64)
+    lib.occ_decode_canvas(
+        img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w, c, S,
+        int(cfg.auto_invert), chroma_thresh,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    nh, nw = int(meta[0]), int(meta[1])
+    return out, nh / h, (nh, nw), float(meta[3]) / max(int(meta[4]), 1)
+
+
+_decode_pool = None
+
+
+def _get_decode_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """The chunk decode's threads, min(8, cpu_count): the native decode
+    and numpy's array work release the GIL."""
+    global _decode_pool
+    if _decode_pool is None:
+        _decode_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            thread_name_prefix="ocrjax_torch-decode")
+    return _decode_pool
+
+
 def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
                          *, gray_fn=None, color_frac: float = 0.0,
                          originals_out=None):
-    """Host decode of a chunk of pages onto luma detection canvases.
+    """Host decode of a chunk of pages onto luma detection canvases, a
+    page a task on the decode pool (a chunk of one page runs inline).
 
     Returns (grays (n, S, S) u8, scales (n,), valid_hw (n, 2), ok (n,) bool,
     colorful list): a page that fails to decode gets ok=False and a zero
     canvas; colorful[j] is True when color_frac > 0 and the page's
     strong-chroma fraction exceeds it. Default-luma pages (gray_fn None)
-    take decode_canvas_luma_first, as the reference takes its native
-    decode; with a gray_fn the canvas is resized in RGB and then projected.
-    originals_out: optional dict; downscaled pages (scale < 1) store their
-    canonical full-resolution RGB original under their `idxs` key, for the
-    full-resolution recognition lane.
+    take the native decode (decode_canvas_native), or its numpy twin
+    decode_canvas_luma_first without the library, as the reference takes
+    its native decode; with a gray_fn the canvas is resized in RGB and then
+    projected. originals_out: optional dict; downscaled pages (scale < 1)
+    store their canonical full-resolution RGB original under their `idxs`
+    key, for the full-resolution recognition lane.
     """
+    idxs = list(idxs)
     n = len(idxs)
     S = cfg.det_max_side
     grays = np.zeros((n, S, S), np.uint8)
@@ -243,7 +326,10 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
     valid_hw = np.zeros((n, 2), np.int64)
     ok = np.ones((n,), bool)
     colorful = [False] * n
-    for j, i in enumerate(idxs):
+    took_native = [False] * n
+
+    def work(j):
+        i = idxs[j]
         try:
             im = images[i]
             if gray_fn is None:
@@ -253,8 +339,12 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
                         arr.ndim == 3 and arr.shape[2] not in (1, 3)):
                     raise ValueError(f"expected a uint8 HW or HWC image, "
                                      f"got {arr.dtype} {arr.shape}")
-                grays[j], scales[j], valid_hw[j], cfrac = \
-                    decode_canvas_luma_first(arr, cfg)
+                got = decode_canvas_native(arr, cfg, out=grays[j])
+                took_native[j] = got is not None
+                if got is None:
+                    got = decode_canvas_luma_first(arr, cfg)
+                    grays[j] = got[0]
+                _, scales[j], valid_hw[j], cfrac = got
                 img = arr
             else:
                 img = load_image(im, auto_invert=cfg.auto_invert)
@@ -266,13 +356,22 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
                 colorful[j] = True
             if originals_out is not None and scales[j] < 0.999:
                 # canonical as load_image makes it: RGB, dark on light
-                originals_out[i] = load_image(img,
-                                              auto_invert=cfg.auto_invert)
+                rgb = load_image(img, auto_invert=False)
+                if cfg.auto_invert and is_inverted(rgb):
+                    rgb = np.asarray(255 - rgb, np.uint8)
+                originals_out[i] = rgb
         except Exception as e:  # noqa: BLE001 - per-page isolation
             # as ocrjax's chunk decode: any failure empties this page only
             ok[j] = False
-            _log.warning("page %d decode failed (isolated): %s: %s",
-                         int(i), type(e).__name__, e)
+            log_fields(get_logger("ocrjax_torch.preprocess"), "warning",
+                       "page decode failed (isolated)",
+                       page=int(i), error=f"{type(e).__name__}: {e}")
+
+    if n == 1:
+        work(0)
+    else:
+        list(_get_decode_pool().map(work, range(n)))
+    native_calls["decode"] += sum(took_native)
     return grays, scales, valid_hw, ok, colorful
 
 
@@ -296,12 +395,38 @@ _BAYER4_I = (np.array([[0, 8, 2, 10], [12, 4, 14, 6],
                        [3, 11, 1, 9], [15, 7, 13, 5]], np.uint16) * 34 + 17)
 
 
+def _pack_nibbles_native(flat: np.ndarray):
+    """occ_pack_nibbles: (R, W) uint8 rows -> (R, W/2), or None without
+    the library. Rows take the dither phase of their absolute row number."""
+    lib = native_boxes._load()
+    if lib is None:
+        return None
+    R, W = flat.shape
+    out = np.empty((R, W // 2), np.uint8)
+    lib.occ_pack_nibbles(flat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                         R, W,
+                         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    native_calls["pack"] += 1
+    return out
+
+
 def pack_nibbles(gray: np.ndarray) -> np.ndarray:
     """uint8 luma (..., H, W) -> (..., H, W/2): Bayer-4x4-dithered 4-bit
     levels, two a byte. q = floor(g/17 + (2b+1)/32) = (32g + 34b + 17) // 544,
-    exact in integers."""
+    exact in integers. With H % 4 == 0 (a stack of pages keeps its dither
+    phase) the native library packs; pack_nibbles_numpy is its twin."""
     if gray.shape[-1] % 2:
         raise ValueError(f"width must be even to pack, got {gray.shape}")
+    H, W = gray.shape[-2:]
+    if H % 4 == 0 and gray.dtype == np.uint8:
+        out = _pack_nibbles_native(np.ascontiguousarray(gray).reshape(-1, W))
+        if out is not None:
+            return out.reshape(gray.shape[:-1] + (W // 2,))
+    return pack_nibbles_numpy(gray)
+
+
+def pack_nibbles_numpy(gray: np.ndarray) -> np.ndarray:
+    """pack_nibbles in numpy, any H."""
     H, W = gray.shape[-2:]
     bay = np.tile(_BAYER4_I, (H // 4 + 1, W // 4 + 1))[:H, :W]
     q = (((gray.astype(np.uint16) << 5) + bay) // 544).astype(np.uint8)

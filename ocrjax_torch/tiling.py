@@ -13,14 +13,14 @@ a line longer than any tile is cropped from the page on the host.
 ocr_tiled_batch streams pages in windows of tiles. The host prepares page
 i+1 on a prefetch thread while page i is uploaded, and the next window's
 upload and detection are issued before the current window's candidates are
-read, so the card detects while the host merges and recognizes. (The
-reference's mesh-sharded tile path belongs to the parallel slice.)
+read, so the card detects while the host merges and recognizes. Under a
+tile mesh (parallel.mesh.shard_tiled_serving) the ranks split each tile
+batch's detection (_dispatch_group).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-import logging
 from typing import List, Tuple
 
 import numpy as np
@@ -30,9 +30,8 @@ import torch.nn.functional as F
 from ocrjax_torch import geometry, preprocess
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.postprocess import db_boxes
+from ocrjax_torch.utils.logging import get_logger, log_fields
 from ocrjax_torch.utils.profiling import stage
-
-_log = logging.getLogger("ocrjax_torch.tiling")
 
 
 def axis_plan(total: int, tile: int, overlap: int, quantum: int
@@ -231,11 +230,29 @@ def _prep_page(engine, img: np.ndarray):
 def _dispatch_group(engine, tiles: np.ndarray):
     """Upload one shape group's tiles and launch their detection without
     waiting for it -> (uploaded tiles, candidates, tiles); (None, None,
-    tiles) when the card ran out of memory, for _fetch_group to halve."""
+    tiles) when the card ran out of memory, for _fetch_group to halve.
+
+    With a tile mesh (parallel.mesh.shard_tiled_serving) the tile axis is
+    the data-parallel axis: the stack is padded to a dp multiple with white
+    (no-ink) tiles, each rank detects its dp slice, the candidates are
+    all-gathered and cut back to the real tiles before the host sees them.
+    Every rank keeps all the uploaded tiles for the recognition crops."""
     from ocrjax_torch.api_det import upload
+    mesh = engine.tile_mesh
     try:
-        dev = upload(engine, preprocess.pack_for_upload(tiles, engine.config))
-        return dev, _tile_forward(engine)(dev), tiles
+        if mesh is None:
+            dev = upload(engine,
+                         preprocess.pack_for_upload(tiles, engine.config))
+            return dev, _tile_forward(engine)(dev), tiles
+        from ocrjax_torch.parallel import mesh as M
+        n = len(tiles)
+        pad = (-n) % mesh.size(0)
+        arr = tiles if not pad else np.concatenate(
+            [tiles, np.full((pad,) + tiles.shape[1:], 255, tiles.dtype)])
+        dev = upload(engine, preprocess.pack_for_upload(arr, engine.config))
+        cand = _tile_forward(engine)(dev[M.dp_slice(mesh, len(arr))])
+        return dev[:n], {k: M.gather_rows(mesh, v)[:n]
+                         for k, v in cand.items()}, tiles
     except torch.cuda.OutOfMemoryError:
         return None, None, tiles
 
@@ -253,8 +270,9 @@ def _fetch_group(engine, dispatched, depth: int = 0):
     except torch.cuda.OutOfMemoryError:
         if depth >= 3 or len(tiles) <= 1:
             raise
-        _log.warning("device OOM: halving a batch of %d tiles (depth %d)",
-                     len(tiles), depth)
+        log_fields(get_logger("ocrjax_torch.tiling"), "warning",
+                   "device OOM: halving tile batch",
+                   tiles=len(tiles), depth=depth)
         del dev, cand
         mid = len(tiles) // 2
         parts = [_fetch_group(engine, _dispatch_group(engine, t), depth + 1)
@@ -284,8 +302,9 @@ def _merge_page(engine, corners, boxes, scores, valid, h, w):
     cap = _tile_forward(engine).tcfg.det_max_candidates
     saturated = bool((valid.sum(axis=1) >= cap).any())
     if saturated:
-        _log.warning("tile candidate cap %d reached on a page of %d tiles: "
-                     "the page is likely truncated", cap, len(corners))
+        log_fields(get_logger("ocrjax_torch.tiling"), "warning",
+                   "tile candidate cap reached — page likely truncated",
+                   cap=cap, tiles=len(corners))
     quads, ss, tids = [], [], []
     for t, (y, x, _, _) in enumerate(corners):
         for i in np.where(valid[t])[0]:

@@ -9,8 +9,9 @@ classifier pass (cls_single_pass). Adam with cosine decay to 0.1 of lr, no
 clipping, as ocrjax trains it.
 
 Differences from ocrjax, by design: the model starts from
-weights.init_random_, not from flax's initializers; `mesh` comes with the
-parallel slice and raises until then.
+weights.init_random_, not from flax's initializers. With mesh= the step
+runs dp-sharded as train_rec's does (parallel.mesh): the losses are means
+over the whole batch; the classifier replicates over tp.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ocrjax_torch.charset import Charset, default_charset
 from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.cls import create_cls, flip_strips_by_width
 from ocrjax_torch.train import synth
-from ocrjax_torch.train.optim import (Adam, cosine_decay_schedule, no_mesh,
+from ocrjax_torch.train.optim import (Adam, cosine_decay_schedule,
                                       train_device, trainable)
 
 
@@ -97,12 +98,14 @@ def make_cls_train_step(model, opt: Adam, mean: float = 0.5,
     antisym * mean((l(s) + l(rot180 s))^2) and the rotated copy's own BCE
     (labels inverted), averaged with the plain BCE."""
 
+    red = opt.sync         # batch-wide means (sharded under a mesh)
+
     def step(images, widths, labels):
         model.train()
         opt.zero_grad()
         x = preprocess.rec_normalize(images, mean, std)
         logits = model(x, widths)
-        bce = sigmoid_bce(logits, labels).mean()
+        bce = red.mean(sigmoid_bce(logits, labels))
         if antisym <= 0:
             loss = bce
         else:
@@ -111,9 +114,9 @@ def make_cls_train_step(model, opt: Adam, mean: float = 0.5,
                 x[:, 0], widths, torch.ones(x.shape[0], dtype=torch.bool,
                                             device=x.device), pad)
             l_rot = model(rot[:, None], widths)
-            bce_rot = sigmoid_bce(l_rot, 1.0 - labels).mean()
+            bce_rot = red.mean(sigmoid_bce(l_rot, 1.0 - labels))
             loss = (0.5 * (bce + bce_rot)
-                    + antisym * torch.mean((logits + l_rot) ** 2))
+                    + antisym * red.mean((logits + l_rot) ** 2))
         loss.backward()
         opt.step()
         return loss.detach()
@@ -142,10 +145,14 @@ def train_cls(
     """ocrjax's train_cls: batches cycle through the width buckets;
     with an engine, p_crop of them are real refined detector crops
     (train.det_crops) and accuracy is taken on held-out crops. Returns the
-    variables in flax's flat layout, the loss history and accuracy."""
+    variables in flax's flat layout, the loss history and accuracy. mesh:
+    as train_rec's; the accuracy is every rank's, on the whole eval
+    batches."""
     from ocrjax_torch.train import det_crops as DC
 
-    no_mesh(mesh)
+    if mesh is not None:
+        from ocrjax_torch.parallel import mesh as M
+        device = str(M.mesh_device(mesh))
     dev = train_device(device)
     config = config or OcrConfig()
     charset = charset or default_charset()
@@ -163,6 +170,8 @@ def train_cls(
     model.to(dev)
     rng = np.random.RandomState(seed)
     opt = cls_optimizer(model, lr, steps)
+    if mesh is not None:
+        M.prepare_training(mesh, model, opt)
     step = make_cls_train_step(model, opt, config.rec_mean, config.rec_std,
                                antisym=antisym)
 
@@ -189,7 +198,10 @@ def train_cls(
     for it in range(steps):
         lb = make_batch(it)
         labels = flip_half(rng, lb)
-        loss = step(*put(lb.images, lb.widths, labels))
+        if mesh is not None:
+            loss = step(*M.shard_batch(mesh, (lb.images, lb.widths, labels)))
+        else:
+            loss = step(*put(lb.images, lb.widths, labels))
         if it % log_every == 0:
             history.append((it, float(loss)))
             if verbose:
@@ -221,5 +233,7 @@ def train_cls(
         pred = logits.cpu().numpy() > 0.0
         hits += int((pred == (labels > 0.5)).sum())
         total += len(labels)
-    return ClsTrainResult(variables=W.model_variables(model),
-                          history=history, accuracy=hits / max(total, 1))
+    variables = W.model_variables(model) if mesh is None \
+        else M.model_variables(mesh, model)
+    return ClsTrainResult(variables=variables, history=history,
+                          accuracy=hits / max(total, 1))

@@ -9,8 +9,10 @@ eval_detection scores extract_boxes (K1 on the card) against the
 synthetic ground truth.
 
 Differences from ocrjax, by design: a model without init_variables starts
-from weights.init_random_, not from flax's initializers; `mesh` comes with
-the parallel slice and raises until then.
+from weights.init_random_, not from flax's initializers. With mesh= the
+step runs dp-sharded as train_rec's does (parallel.mesh): BatchNorm's
+statistics and db_loss's ratios are taken over the whole batch; the
+detector replicates over tp.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ from ocrjax_torch.charset import Charset, default_charset
 from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.db import create_db
 from ocrjax_torch.train import det_gt
-from ocrjax_torch.train.optim import (Adam, no_mesh, train_device,
-                                      trainable, trainer_schedule)
+from ocrjax_torch.train.optim import (Adam, Local, train_device, trainable,
+                                      trainer_schedule)
 
 OHEM_RATIO = 3.0
 
@@ -74,11 +76,14 @@ def ohem_negatives(bce: torch.Tensor, gt_shrink: torch.Tensor
     return neg * (neg_bce >= cut[:, None, None]).float()
 
 
-def db_loss(out: Dict[str, torch.Tensor], gt_shrink, gt_thresh, thresh_mask):
+def db_loss(out: Dict[str, torch.Tensor], gt_shrink, gt_thresh, thresh_mask,
+            red=Local()):
     """-> (loss, {"prob", "binary", "thresh"}), ocrjax's db_loss: the
     OHEM cut at the (1 - k/N) quantile of the negative BCE (k the hard
     negatives kept), negatives with loss >= cut selected; eps 1e-6 in the
-    logs, the dice and the masked L1."""
+    logs, the dice and the masked L1. Each ratio divides batch-wide sums:
+    `red` (train.optim.Local, or a sharded step's MeshSync) sums numerator
+    and denominator over the batch; the OHEM cut stays per image."""
     prob, thresh, binary = out["prob"], out["thresh"], out["binary"]
     eps = 1e-6
 
@@ -89,16 +94,16 @@ def db_loss(out: Dict[str, torch.Tensor], gt_shrink, gt_thresh, thresh_mask):
     with torch.no_grad():      # the selection only feeds a comparison
         hard_neg = ohem_negatives(bce, gt_shrink)
     sel = pos + hard_neg
-    l_prob = torch.sum(bce * sel) / (torch.sum(sel) + eps)
+    l_prob = red.sum(torch.sum(bce * sel)) / (red.sum(torch.sum(sel)) + eps)
 
     # --- dice on binary -----------------------------------------------------
-    inter = torch.sum(binary * gt_shrink)
-    l_bin = 1.0 - 2.0 * inter / (torch.sum(binary) + torch.sum(gt_shrink)
-                                 + eps)
+    inter = red.sum(torch.sum(binary * gt_shrink))
+    l_bin = 1.0 - 2.0 * inter / (red.sum(torch.sum(binary))
+                                 + red.sum(torch.sum(gt_shrink)) + eps)
 
     # --- masked L1 on thresh ------------------------------------------------
-    l_thr = (torch.sum(torch.abs(thresh - gt_thresh) * thresh_mask)
-             / (torch.sum(thresh_mask) + eps))
+    l_thr = (red.sum(torch.sum(torch.abs(thresh - gt_thresh) * thresh_mask))
+             / (red.sum(torch.sum(thresh_mask)) + eps))
 
     return l_prob + l_bin + 10.0 * l_thr, {
         "prob": l_prob.detach(), "binary": l_bin.detach(),
@@ -145,7 +150,7 @@ def make_det_train_step(model, opt: Adam, cfg) -> Callable:
         out = model(x)
         if hs > 1:
             gts, gtt, gtm = pool_targets(gts, gtt, gtm, hs)
-        loss, parts = db_loss(out, gts, gtt, gtm)
+        loss, parts = db_loss(out, gts, gtt, gtm, opt.sync)
         loss.backward()
         opt.step()
         return loss.detach(), parts
@@ -225,8 +230,10 @@ def train_det(
     (models.db.DB_ARCHS, e.g. the tile detector) whose head stride flows
     into the config; init_variables warm-starts; checkpoints as train_rec.
     Returns the variables in flax's flat layout, the loss history and
-    eval_detection's recall and precision."""
-    no_mesh(mesh)
+    eval_detection's recall and precision. mesh: as train_rec's."""
+    if mesh is not None:
+        from ocrjax_torch.parallel import mesh as M
+        log, device = M.rank0_log(log), str(M.mesh_device(mesh))
     dev = train_device(device)
     config = config or OcrConfig()
     charset = charset or default_charset()
@@ -242,7 +249,6 @@ def train_det(
         W.init_random_(model, seed)
     model.to(dev)
     opt = det_optimizer(model, lr, steps)
-    step_fn = make_det_train_step(model, opt, config)
 
     start_step = 0
     if ckpt_dir:
@@ -251,6 +257,9 @@ def train_det(
         if latest:
             start_step = C.load_train_state(latest, model, opt)
             log(f"[det] resumed from {latest} at step {start_step}")
+    if mesh is not None:
+        M.prepare_training(mesh, model, opt)
+    step_fn = make_det_train_step(model, opt, config)
     rng = np.random.RandomState(seed + start_step)
 
     history = []
@@ -259,8 +268,10 @@ def train_det(
         imgs, gts, gtt, gtm = det_gt.make_det_batch(
             rng, charset, batch_size, size, p_word=p_word,
             degrade=degrade, p_dense=p_dense)
-        loss, parts = step_fn(*(torch.from_numpy(a).to(dev)
-                                for a in (imgs, gts, gtt, gtm)))
+        batch = (imgs, gts, gtt, gtm)
+        loss, parts = step_fn(*(
+            M.shard_batch(mesh, batch) if mesh is not None
+            else (torch.from_numpy(a).to(dev) for a in batch)))
         if step % log_every == 0 or step == steps:
             history.append((step, float(loss)))
             log(f"[det {step}/{steps}] loss={float(loss):.4f} "
@@ -271,13 +282,16 @@ def train_det(
         if ckpt_dir and (step % ckpt_every == 0 or step == steps):
             from ocrjax_torch.train import checkpoint as C
             os.makedirs(ckpt_dir, exist_ok=True)
-            C.save_train_state(
-                os.path.join(ckpt_dir, f"det_{step}.safetensors"),
-                step, model, opt)
+            path = os.path.join(ckpt_dir, f"det_{step}.safetensors")
+            if mesh is None:
+                C.save_train_state(path, step, model, opt)
+            else:
+                M.save_train_state(mesh, path, step, model, opt)
 
     eval_rng = np.random.RandomState(seed + 999)
     recall, precision = eval_detection(model, config, charset, eval_rng,
                                        size=size)
     log(f"[det] eval recall={recall:.3f} precision={precision:.3f}")
-    return DetTrainResult(W.model_variables(model), history, recall,
-                          precision)
+    variables = W.model_variables(model) if mesh is None \
+        else M.model_variables(mesh, model)
+    return DetTrainResult(variables, history, recall, precision)

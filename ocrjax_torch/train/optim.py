@@ -68,10 +68,34 @@ def trainer_schedule(lr: float, steps: int) -> Schedule:
                                         steps)
 
 
+class Local:
+    """The batch reductions of an unsharded step, where the whole batch is
+    on this process. A sharded step (parallel.mesh) puts a MeshSync with
+    the same methods in the optimizer's `sync`; the step functions reduce
+    their losses through it, the optimizer its gradients."""
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A batch-wide sum of per-shard sums."""
+        return t
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The batch mean of per-sample values t (B_local, ...)."""
+        return t.mean()
+
+    def reduce_grads(self, grads: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        return grads
+
+    def sq_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The squared global norm of the gradients."""
+        return sum(torch.sum(g * g) for g in grads.values())
+
+
 class Adam:
     """optax.chain(clip_by_global_norm(clip), adam(schedule)) over a list
     of named tensors (clip=None: adam alone). step() reads each tensor's
-    .grad and updates it in place."""
+    .grad and updates it in place; `sync` reduces the gradients first and
+    gives the global norm (Local unless the step is sharded)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule,
                  clip: Optional[float] = 5.0, b1: float = 0.9,
@@ -80,6 +104,7 @@ class Adam:
         self.schedule, self.clip = schedule, clip
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
+        self.sync = Local()
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
 
@@ -93,10 +118,11 @@ class Adam:
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for k, p in self.params.items()}
+        grads = self.sync.reduce_grads(
+            {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in self.params.items()})
         if self.clip is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+            norm = torch.sqrt(self.sync.sq_norm(grads))
             if not bool(norm < self.clip):
                 grads = {k: (g / norm) * self.clip for k, g in grads.items()}
         count = self.count + 1
@@ -140,7 +166,6 @@ def trainable(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-
 def train_device(device: str) -> torch.device:
     """The trainers' device: the card unless the caller asks for the CPU;
     no fallback. On the card TF32 is off, so float32 steps are float32."""
@@ -154,10 +179,3 @@ def train_device(device: str) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
-
-
-def no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data/tensor-parallel training) comes with the port's "
-            "parallel slice, queued in ROADMAP.md")

@@ -9,8 +9,10 @@ card's machine, which has no PIL, the step functions run on batches
 rendered elsewhere (testdata/train_batches.npz).
 
 Differences from ocrjax, by design: a model without init_variables starts
-from weights.init_random_, not from flax's initializers; `mesh` (sharded
-training) comes with the parallel slice and raises until then.
+from weights.init_random_, not from flax's initializers. With mesh= (a
+parallel.mesh.make_mesh mesh; one process a rank, all running train_rec)
+the same step runs dp(+tp)-sharded: every rank renders the whole batch and
+takes its dp slice, and only global rank 0 logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.crnn import create_crnn
 from ocrjax_torch.ops import ctc
 from ocrjax_torch.train import synth
-from ocrjax_torch.train.optim import (Adam, no_mesh, train_device,
-                                      trainable, trainer_schedule)
+from ocrjax_torch.train.optim import (Adam, train_device, trainable,
+                                      trainer_schedule)
 
 
 @dataclasses.dataclass
@@ -53,21 +55,25 @@ def make_train_step(model, opt: Adam, ent_reg: float = 0.0) -> Callable:
     statistics and the optimizer state are updated in place.
 
     ent_reg > 0 subtracts ent_reg times the mean frame entropy over valid
-    frames (ocrjax's soft-posterior term)."""
+    frames (ocrjax's soft-posterior term). Batch-wide reductions go through
+    opt.sync, so the same step runs sharded (parallel.mesh)."""
+    red = opt.sync
 
     def step(images, widths, labels, label_lengths):
         model.train()      # flax's BN train mode; cuDNN's LSTM backward
         opt.zero_grad()
         x = preprocess.rec_normalize(images)
         logits, frame_lengths = model(x, widths)
-        loss = ctc.ctc_loss(logits, frame_lengths, labels, label_lengths)
+        loss = red.mean(ctc.ctc_loss_per_seq(logits, frame_lengths, labels,
+                                             label_lengths))
         if ent_reg > 0:
             logp = torch.log_softmax(logits.float(), dim=-1)
             ent = -torch.sum(torch.exp(logp) * logp, dim=-1)      # (B, T)
             t = torch.arange(logits.shape[1], device=logits.device)
             mask = (t[None, :] < frame_lengths[:, None]).float()
-            loss = loss - ent_reg * (torch.sum(ent * mask)
-                                     / torch.clamp(mask.sum(), min=1.0))
+            loss = loss - ent_reg * (
+                red.sum(torch.sum(ent * mask))
+                / torch.clamp(red.sum(mask.sum()), min=1.0))
         loss.backward()
         opt.step()
         return loss.detach()
@@ -132,8 +138,11 @@ def train_rec(
     degrade_anneal_frac of the steps; checkpoints every ckpt_every steps
     and resumes from the latest in ckpt_dir. Returns the final variables
     in flax's flat layout, the loss history and exact match on 4 clean
-    eval batches."""
-    no_mesh(mesh)
+    eval batches. mesh: see the module docstring; batch_size must be a
+    multiple of its dp size."""
+    if mesh is not None:
+        from ocrjax_torch.parallel import mesh as M
+        log, device = M.rank0_log(log), str(M.mesh_device(mesh))
     dev = train_device(device)
     config = config or OcrConfig()
     charset = charset or default_charset()
@@ -144,7 +153,6 @@ def train_rec(
         W.init_random_(model, seed)
     model.to(dev)
     opt = rec_optimizer(model, lr, steps)
-    train_step = make_train_step(model, opt, ent_reg=ent_reg)
 
     start_step = 0
     if ckpt_dir:
@@ -153,11 +161,16 @@ def train_rec(
         if latest:
             start_step = C.load_train_state(latest, model, opt)
             log(f"[rec] resumed from {latest} at step {start_step}")
+    if mesh is not None:
+        M.prepare_training(mesh, model, opt)
     rng = np.random.RandomState(seed + start_step)
 
     def put(*arrays):
+        if mesh is not None:
+            return M.shard_batch(mesh, arrays)
         return tuple(torch.from_numpy(np.asarray(a)).to(dev) for a in arrays)
 
+    train_step = make_train_step(model, opt, ent_reg=ent_reg)
     history = []
     t0 = time.time()
     for step in range(start_step + 1, steps + 1):
@@ -189,9 +202,11 @@ def train_rec(
         if ckpt_dir and (step % ckpt_every == 0 or step == steps):
             from ocrjax_torch.train import checkpoint as C
             os.makedirs(ckpt_dir, exist_ok=True)
-            C.save_train_state(
-                os.path.join(ckpt_dir, f"rec_{step}.safetensors"),
-                step, model, opt)
+            path = os.path.join(ckpt_dir, f"rec_{step}.safetensors")
+            if mesh is None:
+                C.save_train_state(path, step, model, opt)
+            else:
+                M.save_train_state(mesh, path, step, model, opt)
 
     eval_rng = np.random.RandomState(seed + 777)
     eval_batches = [
@@ -201,4 +216,6 @@ def train_rec(
     ]
     em = evaluate_exact_match(model, charset, eval_batches)
     log(f"[rec] eval exact-match: {em:.3f}")
-    return TrainResult(W.model_variables(model), history, em)
+    variables = W.model_variables(model) if mesh is None \
+        else M.model_variables(mesh, model)
+    return TrainResult(variables, history, em)

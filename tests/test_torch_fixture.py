@@ -49,7 +49,8 @@ by --write-optin.
 The bench, e2e_eval and the trainers (chip_smoke.py phases 13-15) read
 three more inputs, rendered here because the card's machine has no PIL:
   * bench_traffic.npz: run_bench's traffic in its seeds and order
-    (RandomState(0): 256 strips at width 320, then 16 pages at 960; dense
+    (RandomState(0): 256 strips at width 320, then 96 pages at 960, of
+    which run_bench's default takes the first 16 and bench_main all; dense
     page s at RandomState(1000 + s), 3072x2048 with 200 lines), with the
     ground-truth texts and quads;
   * e2e_pages.npz (evaluate_e2e's 8 pages, seed 123, 640 px, and their
@@ -103,6 +104,20 @@ def few_torch_threads():
     torch.set_num_threads(min(n, 2))
     yield
     torch.set_num_threads(n)
+
+
+@contextlib.contextmanager
+def one_rank_mesh(tmp_path):
+    """A (1, 1) parallel.mesh mesh over a gloo process group of this
+    process alone (file rendezvous in tmp_path), torn down after."""
+    import torch.distributed as dist
+    from ocrjax_torch.parallel import mesh as M
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    try:
+        yield M.make_mesh()
+    finally:
+        dist.destroy_process_group()
 
 
 def render_pages() -> np.ndarray:
@@ -256,6 +271,45 @@ def jax_lane_expected(lanes, pages) -> dict:
            "detect_big": det_record(eng.detect(lanes["big"]))}
     out.update(jax_cheap_expected(lanes, eng))
     return out
+
+
+LOGS_EXPECTED = os.path.join(TESTDATA, "expected_jax_logs.json")
+
+
+@contextlib.contextmanager
+def captured_logs(name: str):
+    """The records of logger `name` while the block runs, as (level,
+    message, fields); get_logger's loggers do not propagate to the root,
+    so the handler sits on the logger itself, which logs from INFO up
+    (get_logger sets no level on a logger that has a handler)."""
+    import logging
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append((record.levelname, record.getMessage(),
+                            dict(getattr(record, "fields", {}))))
+    logger = logging.getLogger(name)
+    h, level = Keep(), logger.level
+    logger.addHandler(h)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(h)
+        logger.setLevel(level)
+
+
+def jax_lane_logs(lanes, pages) -> dict:
+    """ocrjax's fused-lane log lines on the mixed batch (the redo counts
+    rotated, saturated, colorful), float32 at 960."""
+    eng = _lane_engine()
+    with captured_logs("ocrjax.fused") as recs:
+        eng.ocr_batch(lane_batch(lanes, pages), fused=True)
+    return {"batch": list(LANE_BATCH), "det_max_side": SIZE,
+            "compute_dtype": "float32",
+            "fused": [{"level": lv, "msg": m, "fields": f}
+                      for lv, m, f in recs]}
 
 
 BEAM_EXPECTED = os.path.join(TESTDATA, "expected_jax_beam_fp32_960.json")
@@ -651,6 +705,11 @@ def _texts(lists) -> dict:
             "line_counts": np.asarray([len(ts) for ts in lists], np.int32)}
 
 
+# bench_main's page count (ocrjax's bench.py); run_bench's default 16 pages
+# are the first 16
+BENCH_PAGES = 96
+
+
 def render_bench_traffic() -> dict:
     """run_bench's traffic from ocrjax.train.synth, in run_bench's order,
     as ocrjax_torch.bench_lib.render_traffic lays it out."""
@@ -669,7 +728,7 @@ def render_bench_traffic() -> dict:
         widths[i] = w
         strip_texts.append(t)
     pages = [synth.render_page(rng, charset, size=(cfg.det_max_side,) * 2)
-             for _ in range(16)]
+             for _ in range(BENCH_PAGES)]
     dense = [synth.render_page_dense(np.random.RandomState(1000 + s),
                                      charset, size=(3072, 2048),
                                      n_lines=200) for s in range(3)]
@@ -865,6 +924,7 @@ def write_fixture() -> None:
         json.dump(jax_lane_expected(lanes, pages), f, indent=1)
         f.write("\n")
     _write_json(BEAM_EXPECTED, jax_beam_expected(pages, lanes))
+    _write_json(LOGS_EXPECTED, jax_lane_logs(lanes, pages))
     flip = render_flip_pages()
     np.savez_compressed(FLIP, **flip)
     _write_json(FLIP_EXPECTED, jax_flip_expected(flip))
@@ -885,7 +945,7 @@ def test_bench_traffic_is_current():
     for k, v in got.items():
         np.testing.assert_array_equal(committed[k], v, err_msg=k)
     assert committed["strips"].shape == (256, 32, 320)
-    assert committed["pages"].shape == (16, SIZE, SIZE)
+    assert committed["pages"].shape == (BENCH_PAGES, SIZE, SIZE)
     assert committed["dense"].shape == (3, 3072, 2048)
     dense = bench_lib.traffic_texts(committed, "dense")
     assert [len(t) for t in dense] == [200, 200, 200]
@@ -1094,14 +1154,19 @@ if __name__ == "__main__":
     if "--write" in sys.argv:
         write_fixture()
         written = [PAGES, EXPECTED, LANES, LANES_EXPECTED, BEAM_EXPECTED,
-                   FLIP, FLIP_EXPECTED, C5, C5_EXPECTED]
+                   LOGS_EXPECTED, FLIP, FLIP_EXPECTED, C5, C5_EXPECTED]
     elif "--write-optin" in sys.argv:
         write_optin_fixture()
     elif "--write-bench-train" in sys.argv:
         write_bench_train_fixture()
+    elif "--write-logs" in sys.argv:
+        lanes = dict(np.load(LANES))
+        _write_json(LOGS_EXPECTED, jax_lane_logs(
+            lanes, np.load(PAGES)["pages"]))
+        written = [LOGS_EXPECTED]
     bench_train = [BENCH_TRAFFIC, E2E_PAGES, E2E_EXPECTED, TRAIN_BATCHES,
                    TRAIN_EXPECTED]
-    if written or "--write-optin" in sys.argv:
+    if "--write" in sys.argv or "--write-optin" in sys.argv:
         written += [OPTIN_EXPECTED, INT8_FOLD, CURL, CURL_EXPECTED]
     if "--write" in sys.argv or "--write-bench-train" in sys.argv:
         written += bench_train

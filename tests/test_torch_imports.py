@@ -43,7 +43,12 @@ def test_no_jax_or_ocrjax_imports():
             "ocrjax_torch/train/det_trainer.py",
             "ocrjax_torch/train/cls_trainer.py",
             "ocrjax_torch/train/det_crops.py",
-            "ocrjax_torch/train/e2e_eval.py"} <= names
+            "ocrjax_torch/train/e2e_eval.py",
+            "ocrjax_torch/parallel/mesh.py", "ocrjax_torch/parallel/dryrun.py",
+            "ocrjax_torch/utils/logging.py",
+            "ocrjax_torch/postprocess/host_boxes.py",
+            "ocrjax_torch/postprocess/native_boxes.py",
+            "ocrjax_torch/bench_main.py"} <= names
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad
@@ -57,7 +62,10 @@ def test_api_import_pulls_in_no_jax():
             "ocrjax_torch.models.db_int8, ocrjax_torch.bench_lib, "
             "ocrjax_torch.train.rec_trainer, ocrjax_torch.train.det_trainer, "
             "ocrjax_torch.train.cls_trainer, ocrjax_torch.train.det_crops, "
-            "ocrjax_torch.train.e2e_eval, ocrjax_torch.train.checkpoint; "
+            "ocrjax_torch.train.e2e_eval, ocrjax_torch.train.checkpoint, "
+            "ocrjax_torch.parallel.mesh, ocrjax_torch.parallel.dryrun, "
+            "ocrjax_torch.utils.logging, ocrjax_torch.postprocess.host_boxes, "
+            "ocrjax_torch.postprocess.native_boxes, ocrjax_torch.bench_main; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -26,7 +26,7 @@ from ocrjax_torch.config import TINY
 from ocrjax_torch.models.cls import create_cls
 from ocrjax_torch.train import cls_trainer as C
 from ocrjax_torch.train import synth
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, one_rank_mesh  # noqa: F401
 from test_torch_train_rec import LOSS_RTOL, compare_steps, flat_of
 
 CHARSET = "assets/rec.charset.txt"
@@ -95,11 +95,18 @@ def test_sigmoid_bce_is_optax():
         atol=1e-7)
 
 
-def test_train_cls_runs_and_refuses_a_mesh():
+def test_train_cls_runs_and_refuses_a_mesh(tmp_path):
     res = C.train_cls(config=TINY, charset=None, steps=2, batch_size=4,
                       widths=(64, 128), eval_batches=1, log_every=1,
                       device="cpu")
     assert len(res.history) == 2 and 0.0 <= res.accuracy <= 1.0
     assert set(res.variables) == set(W.model_variables(create_cls(TINY)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        C.train_cls(config=TINY, steps=1, mesh=object(), device="cpu")
+    # mesh= runs the same training on a mesh of one rank
+    kw = dict(config=TINY, charset=None, steps=2, batch_size=4,
+              widths=(64,), eval_batches=1, log_every=1, device="cpu")
+    want = C.train_cls(**kw)
+    with one_rank_mesh(tmp_path) as mesh:
+        got = C.train_cls(**kw, mesh=mesh)
+    np.testing.assert_allclose([v for _, v in got.history],
+                               [v for _, v in want.history], rtol=1e-5)
+    assert got.accuracy == want.accuracy

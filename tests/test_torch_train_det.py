@@ -43,7 +43,7 @@ from ocrjax_torch.config import TINY
 from ocrjax_torch.models.db import create_db
 from ocrjax_torch.train import det_crops, det_gt
 from ocrjax_torch.train import det_trainer as D
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, one_rank_mesh  # noqa: F401
 from test_torch_train_rec import LOSS_RTOL, compare_steps, flat_of
 
 NOISE_LEAVES = ("params/DBHead_0/ConvTranspose_0/bias",
@@ -213,11 +213,18 @@ def test_det_crops_match_ocrjax(engines):
     assert lb.texts == la.texts
 
 
-def test_train_det_runs_and_refuses_a_mesh():
+def test_train_det_runs_and_refuses_a_mesh(tmp_path):
     res = D.train_det(config=TINY, steps=2, batch_size=1, size=64,
                       log_every=1, log=lambda m: None, device="cpu",
                       arch=dict(DB_ARCHS["tile"], head_stride=4))
     assert [s for s, _ in res.history] == [1, 2]
     assert "params/DBHead_0/Conv_0/kernel" in res.variables
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        D.train_det(config=TINY, steps=1, mesh=object(), device="cpu")
+    # mesh= runs the same training on a mesh of one rank
+    kw = dict(config=TINY, steps=2, batch_size=2, size=64,
+              log=lambda m: None, device="cpu")
+    want = D.train_det(**kw)
+    with one_rank_mesh(tmp_path) as mesh:
+        got = D.train_det(**kw, mesh=mesh)
+    np.testing.assert_allclose([v for _, v in got.history],
+                               [v for _, v in want.history], rtol=1e-5)
+    assert set(got.variables) == set(want.variables)

@@ -47,7 +47,7 @@ from ocrjax_torch.models.crnn import BatchNorm, create_crnn
 from ocrjax_torch.ops import ctc
 from ocrjax_torch.train import optim
 from ocrjax_torch.train import rec_trainer as R
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, one_rank_mesh  # noqa: F401
 
 LOSS_RTOL = 1e-4
 UPDATE_RTOL = 2e-2
@@ -266,8 +266,15 @@ def test_train_rec_runs_resumes_and_refuses_a_mesh(tmp_path):
     assert any("resumed" in m and "step 2" in m for m in logs2), logs2
     assert any("[rec 3/3]" in m for m in logs2)
     assert not any("[rec 1/3]" in m for m in logs2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.train_rec(**{**kw, "mesh": object()})
+    # mesh= runs the same training on a mesh of one rank
+    (tmp_path / "m").mkdir()
+    with one_rank_mesh(tmp_path / "m") as mesh:
+        res_m = R.train_rec(**{**kw, "mesh": mesh, "log": lambda m: None,
+                               "ckpt_dir": str(tmp_path / "m")})
+    np.testing.assert_allclose([v for _, v in res_m.history],
+                               [v for _, v in res.history], rtol=1e-5)
+    assert set(res_m.variables) == set(res.variables)
+    assert (tmp_path / "m" / "rec_2.safetensors").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             R.train_rec(**{**kw, "device": "cuda"})
