@@ -11,11 +11,18 @@ Phases, in order; any failure exits non-zero:
      often HGMMA occurs in the built conv_fused library's SASS;
   1. kernels: each kernel against its plain PyTorch version on the card at
      its path's shapes and on edge cases, with the path every launch took.
-     cc_label: bit-exact on both paths (labels in shared memory, labels in
+     cc_label: bit-exact on all three paths (labels in one block's shared
+     memory, in a thread-block cluster's distributed shared memory, in
      device memory); the 240^2 and 128^2 grids must take the shared path
-     unforced and 512^2 the global one; its time (CUDA events, median of 25
-     launches) beside the global path's in turns, an empty launch's, the
-     plain version's and the card's lower bound. conv_fused: the weight
+     unforced, every C5 grid (512^2, 512x192, 448x512, 448x192; at
+     densities 0.3, 0.5, 0.72, n_iters 4-6, all background, all
+     foreground, a snake across every band boundary, runs on band-boundary
+     rows, H no multiple of 8) the cluster path, and each of them the
+     general path forced; the shared path's time on 16 x 240^2 and the
+     cluster path's on 2 x 512^2 (CUDA events, median of 25 launches),
+     each beside the general path's in turns (at most 1/4 and 1/8 of it),
+     the profiler's device-only time, an empty launch's, the plain
+     version's and the card's lower bound. conv_fused: the weight
      pre-kernel against pack_weights_torch bit for bit, then all 12
      production shapes with bf16 x (11 must take the wgmma path, crnn.conv0
      the small-Cin path), two with float32 x, the edge shapes (the general
@@ -57,10 +64,10 @@ Phases, in order; any failure exits non-zero:
      with exact moment sums (as the port sums them; at 2048-pixel tiles the
      reference's float32 sums move its own boxes by up to the recorded
      reference_moment_error_px) and within that error + 0.011 px of its
-     float32 run; every cc_label launch of the phase
-     must take the general ("global") path, as every C5 grid is past 65,535
-     pixels. Then, in bfloat16: pages/s, device ms per stage, host ms of the
-     host stages, K1's ms per window, and the peak device memory.
+     float32 run; every cc_label launch of the phase must take the
+     cluster path, as every C5 grid is past 65,535 pixels. Then, in
+     bfloat16: pages/s, device ms per stage, host ms of the host stages,
+     K1's ms per window, and the peak device memory.
   10. the opt-in paths in float32 against the JAX engine's float32 outputs
      with the same flag (expected_jax_optin_fp32_960.json,
      expected_jax_curl_fp32_960.json): det_int8 on the fused lane (the 16
@@ -85,7 +92,7 @@ Phases, in order; any failure exits non-zero:
      own zlib encoder, cli.main(["ocr", a, b, "--json"]), (["detect", a,
      "--json"]) and (["ocr", sparse A4 page, "--tiled", "--json"]) in
      process, their JSON equal to the engine's results on the same arrays
-     rounded as the CLI rounds; the --tiled call labels on the global path,
+     rounded as the CLI rounds; the --tiled call labels on the cluster path,
      the others on the shared path; wall time of each call.
   13. the bench: bench_lib.run_bench on the committed traffic
      (bench_traffic.npz: 256 strips, 16 pages at 960, 3 dense pages of
@@ -94,7 +101,7 @@ Phases, in order; any failure exits non-zero:
      every number finite; the device ceiling at or above the fused lane's
      pages/s; the last fused window's strings read as a direct float32
      ocr_batch on the same pages on at least 0.9 of the lines; K1 on the
-     shared path in the page sections and on the general path in the C5
+     shared path in the page sections and on the cluster path in the C5
      sections (counted by the bench, by section and path);
   14. e2e_eval: score_e2e of the committed pages (e2e_pages.npz, the 8
      pages of evaluate_e2e at seed 123) in float32, equal to ocrjax's
@@ -125,8 +132,9 @@ Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
 such a phase and read just after, in all and by path; the lane phases 2,
 3, 5-8, 10, 11, 12's page calls, 13's page sections, 14 and 16's fused
 call must label on the shared path only, phase 9, 12's tiled call, 13's
-C5 sections and 16's tiled call on the global path only. The last lines are the kernels' JSON
-record, the card's name and power limit, and {"ok": true, "device": ...}.
+C5 sections and 16's tiled call on the cluster path only. The last lines
+are the kernels' JSON record, the card's name and power limit, and
+{"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -403,26 +411,33 @@ def read(counters, phase: str, must_launch) -> dict:
     return launches
 
 
-def no_global_ccl(phase: str) -> dict:
-    """The fused lane labels 240x240 grids only: fails if one of them went
-    to the general path. Returns cc_label's launches by path."""
+CCL_WHY = {"shared": "the lanes' 240x240 grids belong on the shared path",
+           "cluster": "the C5 tile grids (98,304 to 262,144 pixels) belong "
+                      "on the cluster path"}
+
+
+def only_path(phase: str, path: str, by_path: dict | None = None) -> dict:
+    """Fails unless every cc_label launch in by_path (default: those counted
+    since the last reset) took `path`, and one did at least. Returns
+    by_path."""
     from ocrjax_torch.ops.cc_label import label_components_cuda
-    by_path = dict(label_components_cuda.launches_by_path)
-    if by_path["global"] or not by_path["shared"]:
-        fail(f"phase '{phase}': cc_label launches by path {by_path}; the "
-             f"240x240 grids belong on the shared path")
+    if by_path is None:
+        by_path = dict(label_components_cuda.launches_by_path)
+    if not by_path[path] or any(v for k, v in by_path.items() if k != path):
+        fail(f"phase '{phase}': cc_label launches by path {by_path}; "
+             f"{CCL_WHY[path]}")
     return by_path
 
 
-def only_global_ccl(phase: str) -> dict:
-    """The tiled lane labels grids of 98,304 to 262,144 pixels: fails if
-    one of them went to the shared path, or none was labeled."""
-    from ocrjax_torch.ops.cc_label import label_components_cuda
-    by_path = dict(label_components_cuda.launches_by_path)
-    if by_path["shared"] or not by_path["global"]:
-        fail(f"phase '{phase}': cc_label launches by path {by_path}; the C5 "
-             f"tile grids belong on the general path")
-    return by_path
+def ccl_bound(pixels: int, n_iters: int = 4) -> dict:
+    """The card's lower bound for labeling `pixels` grid pixels: the
+    bitmap read once and the int32 labels written once; per pixel and
+    sweep 2 row + 2 column run-min steps and 9 window mins."""
+    bytes_ms = pixels * (1 + 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = pixels * n_iters * 13 / SIMT_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
 
 
 def phase_kernels():
@@ -449,8 +464,38 @@ def phase_kernels():
               ("255x257", rand((1, 255, 257), 0.5), 4, "shared"),
               ("3x37x70", rand((3, 37, 70), 0.3), 5, "shared"),
               ("1x1", rand((1, 1, 1), 0.0), 4, "shared"),
-              ("256^2", rand((1, 256, 256), 0.5), 4, "global"),
-              ("4x512^2", rand((4, 512, 512), 0.5), 4, "global")]
+              ("256^2", rand((1, 256, 256), 0.5), 4, "cluster"),
+              ("4x512^2", rand((4, 512, 512), 0.5), 4, "cluster"),
+              ("1x70x1100", rand((1, 70, 1100), 0.5), 4, "global")]
+    # the cluster path: the four C5 grids, two a launch as a C5 window
+    # batches a page's kept tiles, at three densities
+    cases += [(f"2x{h}x{w} density {d}", rand((2, h, w), d), 4, "cluster")
+              for h, w in ((512, 512), (512, 192), (448, 512), (448, 192))
+              for d in (0.3, 0.5, 0.72)]
+    cases += [(f"2x512^2 n_iters {it}", rand((2, 512, 512), 0.5), it,
+               "cluster") for it in (5, 6)]
+    blank = torch.zeros((1, 512, 512), dtype=torch.bool, device="cuda")
+    cases += [("512^2 all background", blank, 4, "cluster"),
+              ("512^2 all foreground", ~blank, 4, "cluster")]
+    # a snake whose vertical runs cross every band boundary (8 bands of 64
+    # rows), joined at alternate ends, and runs that begin and end exactly
+    # on band-boundary rows (63/64, 127/128, ...)
+    snake = blank.clone()
+    for x in range(2, 510, 4):
+        snake[0, 1:511, x] = True
+        snake[0, 1 if (x // 4) % 2 else 510, x:x + 5] = True
+    edges = blank.clone()
+    for k in range(1, 8):
+        edges[0, 64 * k - 1:64 * k + 1, 10 * k:10 * k + 30] = True
+        edges[0, 64 * k:64 * k + 3, 200 + 5 * k] = True
+        edges[0, 64 * k - 3:64 * k, 300 + 5 * k] = True
+        edges[0, 64 * k - 1, 400 + 5 * k] = True
+        edges[0, 64 * k, 402 + 5 * k] = True
+    cases += [(f"512^2 snake across bands, n_iters {it}", snake, it,
+               "cluster") for it in (4, 24)]
+    cases += [("512^2 runs on band edges", edges, 4, "cluster"),
+              ("2x301x258 (H no multiple of 8)", rand((2, 301, 258), 0.4),
+               5, "cluster")]
     err = 0
     for name, bm, it, expect in cases:
         want = label_components_torch(bm, it)
@@ -484,30 +529,44 @@ def phase_kernels():
     device_only_ms = bench_conv.device_ms(
         lambda: label_components_cuda(bm, 4))
     plain_ms = time_ms(lambda: label_components_torch(bm, 4))
-    nbytes = B * H * W * (1 + 4)          # bitmap in, int32 labels out
-    # per pixel and sweep: 2 row + 2 column run-min steps, 9 window mins
-    ops = B * H * W * 4 * 13
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / SIMT_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    b = ccl_bound(B * H * W)
     print(f"  cc_label 16x240^2: shared path {ms:.4f} ms, general path "
           f"{global_ms:.4f} ms (in turns; {global_ms / ms:.2f}x), shared path "
           f"device only by torch.profiler {device_only_ms} ms, empty "
           f"launch {empty_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{bound_ms * 1e3:.3f} us "
-          f"({'bytes' if bytes_ms >= ops_ms else 'operations'})")
+          f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']})")
     if not ms * 4 <= global_ms:
         fail(f"cc_label's shared path takes {ms} ms, more than a quarter of "
              f"the general path's {global_ms} ms")
+    # the cluster path at a C5 window's shape: two 512x512 grids, 4 sweeps,
+    # against the general path in turns
+    bm = rand((2, 512, 512), 0.5)
+    cl_ms, cl_global_ms = bench_conv.time_in_turns_ms(
+        lambda: label_components_cuda(bm, 4),
+        lambda: label_components_cuda(bm, 4, path="global"), 25, True)
+    cl_device_ms = bench_conv.device_ms(lambda: label_components_cuda(bm, 4))
+    cl_plain_ms = time_ms(lambda: label_components_torch(bm, 4))
+    cl = ccl_bound(bm.numel())
+    print(f"  cc_label 2x512^2: cluster path {cl_ms:.4f} ms, general path "
+          f"{cl_global_ms:.4f} ms (in turns; {cl_global_ms / cl_ms:.2f}x), "
+          f"cluster path device only by torch.profiler {cl_device_ms} ms, "
+          f"empty launch {empty_ms:.4f} ms, plain {cl_plain_ms:.4f} ms, "
+          f"bound {cl['bound_ms'] * 1e3:.3f} us ({cl['bound_by']})")
+    if not cl_ms * 8 <= cl_global_ms:
+        fail(f"cc_label's cluster path takes {cl_ms} ms, more than an eighth "
+             f"of the general path's {cl_global_ms} ms")
     return {"name": "cc_label", "route": "cuda",
             "source": "ocrjax_torch/csrc/cc_label.cu",
             "replaces": "ocrjax/ops/pallas/cc_label.py:102",
             "max_abs_err": float(err), "ms": ms, "global_path_ms": global_ms,
             "device_only_ms": device_only_ms,
             "empty_launch_ms": empty_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None,
+            "cluster": {"grid": "2x512x512", "ms": cl_ms,
+                        "global_path_ms": cl_global_ms,
+                        "device_only_ms": cl_device_ms,
+                        "plain_ms": cl_plain_ms, **cl}}
 
 
 def load_fixture():
@@ -610,7 +669,7 @@ def phase_fp32(pages, expected, counters):
     results = eng.ocr_batch(pages, fused=True)
     single = eng.ocr(pages[0])
     launches = read(counters, "fused float32", ["label_components_cuda"])
-    by_path = no_global_ccl("fused float32")
+    by_path = only_path("fused float32", "shared")
     worst = max(check_against(results, expected),
                 check_against([single], expected[:1]))
     n_lines = sum(len(r.lines) for r in results)
@@ -635,7 +694,7 @@ def phase_bf16(pages, fp32_results, counters, reps: int = 3):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read(counters, "fused bfloat16", ["label_components_cuda"])
-    ccl_by_path = no_global_ccl("fused bfloat16")
+    ccl_by_path = only_path("fused bfloat16", "shared")
     timer = StageTimer()
     with timer.active():
         eng.ocr_batch(pages, fused=True)
@@ -706,7 +765,7 @@ def phase_lanes_fp32(eng, fixture, counters):
     recs = eng.recognize_strips(strips)
     launches = read(counters, "staged lanes float32",
                     ["label_components_cuda"])
-    by_path = no_global_ccl("staged lanes float32")
+    by_path = only_path("staged lanes float32", "shared")
     worst = max(
         check_against(fused, want["fused_batch"], "fused batch page"),
         check_against(bucketed, want["bucketed_batch"], "bucketed page"),
@@ -799,7 +858,7 @@ def phase_beam_fp32(eng, pages, lane_fixture, counters) -> dict:
     bucketed = eng.ocr_batch(batch, fused=False, beam=True)
     recs = eng.recognize_strips(strips, beam=True)
     launches = read(counters, "beam float32", ["label_components_cuda"])
-    by_path = no_global_ccl("beam float32")
+    by_path = only_path("beam float32", "shared")
     worst = max(
         check_against(fused, [e for e in want["fused"] for _ in range(4)],
                       "beam fused page"),
@@ -866,7 +925,7 @@ def phase_flip_fp32(counters) -> dict:
     bucketed = eng.ocr_batch(batch, fused=False)
     launches = read(counters, "orientation float32",
                     ["label_components_cuda"])
-    by_path = no_global_ccl("orientation float32")
+    by_path = only_path("orientation float32", "shared")
     worst = max(check_against(singles, want["ocr"], "flip ocr() page"),
                 check_against(fused, want["fused_batch"], "flip fused page"),
                 check_against(bucketed, want["bucketed_batch"],
@@ -931,7 +990,7 @@ def phase_c5_fp32(counters) -> tuple:
     res = eng.ocr_tiled_batch(batch)
     det = eng.detect_tiled(c5["dense"])
     launches = read(counters, "C5 float32", ["label_components_cuda"])
-    by_path = only_global_ccl("C5 float32")
+    by_path = only_path("C5 float32", "cluster")
     # held to the reference evaluated with exact moment sums (the port's
     # own summation; test_torch_fixture.exact_moments) at the goldens bar,
     # and to the reference's float32 outputs with the same strings, order,
@@ -994,7 +1053,7 @@ def phase_c5_bf16(counters, fp32_results, reps: int = 2) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read(counters, "C5 bfloat16", ["label_components_cuda"])
-    by_path = only_global_ccl("C5 bfloat16")
+    by_path = only_path("C5 bfloat16", "cluster")
     peak = torch.cuda.max_memory_allocated()
     timer = StageTimer()
     with timer.active():
@@ -1028,9 +1087,8 @@ def phase_c5_bf16(counters, fp32_results, reps: int = 2) -> tuple:
              for img in batch
              for (_, _, th, tw) in tiling._prep_page(
                  eng, preprocess.load_image(img))[0])
-    bound_ms = max(px * 5 / HBM_BYTES_PER_S,
-                   px * 4 * 13 / SIMT_OPS_PER_S) * 1e3
-    print(f"  C5 K1 (general path): {dev['ccl']:.4f} ms over {n_ccl} "
+    bound_ms = ccl_bound(px)["bound_ms"]
+    print(f"  C5 K1 (cluster path): {dev['ccl']:.4f} ms over {n_ccl} "
           f"launches in {windows} windows: {dev['ccl'] / windows:.4f} ms a "
           f"window, {dev['ccl'] / n_ccl:.4f} ms a launch; bound for the "
           f"batch's {px} grid pixels {bound_ms * 1e3:.3f} us (bytes); "
@@ -1224,7 +1282,7 @@ def phase_optin_fp32(counters, pages, lane_fixture) -> tuple:
     gated = (gate.ocr_batch(batch, fused=True),
              gate.ocr_batch(batch, fused=False))
     launches = read(counters, "opt-in float32", ["label_components_cuda"])
-    by_path = no_global_ccl("opt-in float32")
+    by_path = only_path("opt-in float32", "shared")
 
     w8 = want["int8"]
     int8_want = ([e for e in w8["fused"] for _ in range(4)], [w8["ocr"]],
@@ -1306,7 +1364,7 @@ def phase_optin_bf16(counters, pages, lane_fixture, fp32) -> tuple:
             "gate": (gate.ocr_batch(batch, fused=True),
                      gate.ocr_batch(batch, fused=False))}
     launches = read(counters, "opt-in bfloat16", ["label_components_cuda"])
-    by_path = no_global_ccl("opt-in bfloat16")
+    by_path = only_path("opt-in bfloat16", "shared")
     per = {"int8": [line_agreement(a, b)
                     for a, b in zip(outs["int8"], fp32["int8"])],
            "grouped": [line_agreement(outs["grouped"], fp32["grouped"])],
@@ -1472,13 +1530,11 @@ def phase_cli(counters, pages) -> tuple:
                 fail("CLI detect: JSON differs from engine.detect")
         elif got[0]["lines"] != cli_lines(want_tiled):
             fail("CLI ocr --tiled: JSON differs from engine.ocr_tiled")
-    tiled = by_path.pop("ocr --tiled sparse")
-    if tiled["shared"] or not tiled["global"]:
-        fail(f"CLI ocr --tiled: cc_label by path {tiled}, not all global")
-    shared = {k: sum(v[k] for v in by_path.values())
-              for k in ("shared", "global")}
-    if shared["global"] or not shared["shared"]:
-        fail(f"CLI page calls: cc_label by path {shared}, not all shared")
+    tiled = only_path("CLI ocr --tiled", "cluster",
+                      by_path.pop("ocr --tiled sparse"))
+    shared = only_path("CLI page calls", "shared",
+                       {k: sum(v[k] for v in by_path.values())
+                        for k in label_components_cuda.launches_by_path})
     print(f"  CLI on PNG files: JSON of ocr (2 pages), detect and ocr "
           f"--tiled (A4) equals the engine's results on the same arrays; "
           f"wall ms (host clock, PNG decode included) "
@@ -1499,9 +1555,9 @@ BENCH_KEYS = ("device", "pages", "lines", "upload_bits", "crops_per_sec",
               "pages_per_sec_median", "e2e_batch_ms", "stages_last_window",
               "windows_detail", "cc_label_launches_by_section")
 # where the bench labels 240x240 grids (K1's shared path) and where it
-# labels C5 tile grids (the general path)
+# labels C5 tile grids (the cluster path)
 BENCH_SHARED_SECTIONS = ("windows", "device_ceiling", "latency")
-BENCH_GLOBAL_SECTIONS = ("dense", "dense_ceiling")
+BENCH_C5_SECTIONS = ("dense", "dense_ceiling")
 
 
 def _numbers(x, key=""):
@@ -1526,6 +1582,7 @@ def phase_bench(counters) -> tuple:
     import numpy as np
     from ocrjax_torch import bench_lib
     from ocrjax_torch.api import OcrEngine, asset_config
+    from ocrjax_torch.ops.cc_label import PATHS
     traffic = bench_lib.load_traffic()
     windows = {}
     reset(counters)
@@ -1540,15 +1597,10 @@ def phase_bench(counters) -> tuple:
         fail(f"bench: the device ceiling {rep['pages_per_sec_device']} "
              f"pages/s is below the fused lane's {rep['pages_per_sec_fused']}")
     sec = rep["cc_label_launches_by_section"]
-    shared = {p: sum(sec[s][p] for s in BENCH_SHARED_SECTIONS)
-              for p in ("shared", "global")}
-    dense = {p: sum(sec[s][p] for s in BENCH_GLOBAL_SECTIONS)
-             for p in ("shared", "global")}
-    if shared["global"] or not shared["shared"]:
-        fail(f"bench page sections: cc_label by path {shared}, not all "
-             f"shared")
-    if dense["shared"] or not dense["global"]:
-        fail(f"bench C5 sections: cc_label by path {dense}, not all global")
+    shared = only_path("bench page sections", "shared", {
+        p: sum(sec[s][p] for s in BENCH_SHARED_SECTIONS) for p in PATHS})
+    dense = only_path("bench C5 sections", "cluster", {
+        p: sum(sec[s][p] for s in BENCH_C5_SECTIONS) for p in PATHS})
     # the last fused window against a direct float32 run on the same pages
     eng32 = OcrEngine.from_pretrained(
         config=asset_config(compute_dtype="float32"))
@@ -1594,7 +1646,7 @@ def phase_e2e(counters) -> dict:
     reset(counters)
     got32 = e2e_eval.score_e2e(eng32, list(pages), gts)
     launches = read(counters, "e2e float32", ["label_components_cuda"])
-    by_path = no_global_ccl("e2e float32")
+    by_path = only_path("e2e float32", "shared")
     got16 = e2e_eval.score_e2e(OcrEngine.from_pretrained(), list(pages), gts)
     print(f"  e2e on {len(pages)} pages ({sum(map(len, gts))} lines): fp32 "
           + json.dumps({k: got32[k] for k in keys}) + ", ocrjax fp32 "
@@ -1847,7 +1899,7 @@ def _parallel_child(rank, init_file, out_file):
         reset(counters)
         got = {k: v.cpu().numpy() for k, v in
                sharded(packed_d, thr, wh_d).items()}
-        out["ccl_fused"] = no_global_ccl("sharded fused")
+        out["ccl_fused"] = only_path("sharded fused", "shared")
         worst = max(_same_lines(f"sharded fused page {i}",
                                 _fused_lines(got, eng.charset, i),
                                 _fused_lines(want, eng.charset, i))
@@ -1864,7 +1916,7 @@ def _parallel_child(rank, init_file, out_file):
         M.shard_tiled_serving(eng, mesh)
         reset(counters)
         got_t = eng.ocr_tiled_batch(batch)
-        out["ccl_tiled"] = only_global_ccl("sharded tiled")
+        out["ccl_tiled"] = only_path("sharded tiled", "cluster")
         M.shard_tiled_serving(eng, None)
 
         def lines(r):
@@ -2106,7 +2158,7 @@ def main() -> int:
         "int8_ocrjax_fold": optin32["int8_ocrjax_fold"],
         "worst_box_px": optin32["worst_box_px"], "cli_wall_ms": cli_ms}))
     by_path = {p: sum(v[p] for v in ccl_phases.values())
-               for p in ("shared", "global")}
+               for p in label_components_cuda.launches_by_path}
     kernels = [{**ccl, **c5, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_by_phase": ccl_phases}, conv]

@@ -1,7 +1,8 @@
-"""Connected-component labeling: the two CUDA kernels (labels in shared
-memory for grids that fit, in device memory for the rest), their plain
-version, and the wrapper that picks kernel or plain version by the tensor's
-device.
+"""Connected-component labeling: the three CUDA kernels (labels in one
+block's shared memory for small grids, in a thread-block cluster's
+distributed shared memory for the C5 tile grids, in device memory for the
+rest), their plain version, and the wrapper that picks kernel or plain
+version by the tensor's device.
 
 Counterpart of ocrjax/ops/pallas/cc_label.py (the TPU kernel) and of
 ocrjax/postprocess/db_boxes.py::label_components (its XLA formulation).
@@ -90,7 +91,16 @@ def label_components_torch(bitmap: torch.Tensor, n_iters: int = 4
 SHARED_MAX_PIXELS = 65535
 SHARED_MAX_CHUNKS = 9 * 1024
 SHARED_MEMORY_LIMIT = 232448
-PATHS = ("shared", "global")
+# The cluster kernel splits a grid's rows over a cluster of 8 CTAs; each
+# keeps its band as uint32 labels in rows padded to 16 pixels, with 4 words
+# of padding after every 32 pixels (so that a warp's 16-byte loads of 16
+# consecutive pixels a lane meet no bank conflict), plus two such rows of
+# halos and three unpadded rows of summaries; a warp holds a whole row in
+# registers (at most 2 rounds of 512 pixels).
+CLUSTER_SIZE = 8
+CLUSTER_MAX_WIDTH = 1024
+PATHS = ("shared", "cluster", "global")
+_PATH_CODES = {"global": 0, "shared": 1, "cluster": 2}
 
 
 def shared_bytes(H: int, W: int) -> int:
@@ -98,37 +108,67 @@ def shared_bytes(H: int, W: int) -> int:
     return H * (-(-W // 8)) * 16
 
 
+def cluster_bytes(H: int, W: int) -> int:
+    """Shared memory a CTA of the cluster path takes for an (H, W) grid:
+    its band of ceil(H / 8) rows and two halo rows, Wp words each, and
+    three summary rows of Ws words."""
+    ws = -(-W // 16) * 16
+    wp = ws + -(-ws // 32) * 4
+    return ((-(-H // CLUSTER_SIZE) + 2) * wp + 3 * ws) * 4
+
+
+def fits_shared(H: int, W: int) -> bool:
+    return H * W <= SHARED_MAX_PIXELS and H * (-(-W // 8)) <= SHARED_MAX_CHUNKS
+
+
+def fits_cluster(H: int, W: int) -> bool:
+    return (W <= CLUSTER_MAX_WIDTH
+            and cluster_bytes(H, W) <= SHARED_MEMORY_LIMIT)
+
+
 def ccl_path(H: int, W: int) -> str:
     """Which hand-written kernel labels an (H, W) grid on the card:
-    "shared" (labels stay in shared memory for all sweeps) where the grid
-    fits it, else "global" (labels in device memory, any size)."""
-    if H * W <= SHARED_MAX_PIXELS and H * (-(-W // 8)) <= SHARED_MAX_CHUNKS:
+    "shared" (uint16 labels stay in one block's shared memory for all
+    sweeps) where the grid fits it; "cluster" (int32 labels stay in the
+    shared memory of a cluster of 8 CTAs, a band of rows each) for a grid
+    of more than 65,535 pixels whose band fits a CTA and whose row fits the
+    row pass's registers; else "global" (labels in device memory, any
+    size)."""
+    if fits_shared(H, W):
         return "shared"
+    if H * W > SHARED_MAX_PIXELS and fits_cluster(H, W):
+        return "cluster"
     return "global"
 
 
 def label_components_cuda(bitmap: torch.Tensor, n_iters: int = 4,
                           path: Optional[str] = None) -> torch.Tensor:
     """Launches csrc/cc_label.cu on the current stream; (B, H, W) CUDA
-    bool/uint8 -> int32. `path` forces "shared" or "global" (tests and
+    bool/uint8 -> int32. `path` forces one of PATHS (tests and
     measurements; the lanes leave it None and get ccl_path(H, W)); forcing
-    a path that cannot take the grid raises. Counts each launch in
-    `label_components_cuda.launches` and, by path, in `.launches_by_path`."""
-    if not bitmap.is_cuda or bitmap.dim() != 3:
-        raise ValueError(f"expected a (B, H, W) CUDA tensor, got "
-                         f"{tuple(bitmap.shape)} on {bitmap.device}")
+    a path that cannot take the grid raises, and so does a cluster
+    configuration of which the card can hold no cluster. Counts each
+    launch in `label_components_cuda.launches` and, by path, in
+    `.launches_by_path`."""
+    if bitmap.dim() != 3:
+        raise ValueError(f"expected a (B, H, W) tensor, got "
+                         f"{tuple(bitmap.shape)}")
+    B, H, W = bitmap.shape
+    fits = {"shared": fits_shared, "cluster": fits_cluster}
+    if path is None:
+        path = ccl_path(H, W)
+    elif path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    elif path in fits and not fits[path](H, W):
+        raise ValueError(f"a {H} x {W} grid does not fit the {path} path")
+    if not bitmap.is_cuda:
+        raise ValueError(f"expected a CUDA tensor, got one on "
+                         f"{bitmap.device}")
     if bitmap.dtype not in (torch.bool, torch.uint8):
         bitmap = bitmap.to(torch.uint8)
     bm = bitmap.contiguous()
     if bm.dtype == torch.bool:
         bm = bm.view(torch.uint8)                 # same bytes, no copy
-    B, H, W = bm.shape
-    if path is None:
-        path = ccl_path(H, W)
-    elif path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-    elif path == "shared" and ccl_path(H, W) != "shared":
-        raise ValueError(f"a {H} x {W} grid does not fit the shared path")
     fn = _cuda.entry("cc_label", "ocj_cc_label", [ctypes.c_void_p] * 3
                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     out = torch.empty((B, H, W), dtype=torch.int32, device=bm.device)
@@ -136,7 +176,7 @@ def label_components_cuda(bitmap: torch.Tensor, n_iters: int = 4,
     with _cuda.on_device(bm.device):
         err = fn(bm.data_ptr(), out.data_ptr(),
                  scratch.data_ptr() if scratch is not None else None,
-                 B, H, W, int(n_iters), int(path == "shared"),
+                 B, H, W, int(n_iters), _PATH_CODES[path],
                  torch.cuda.current_stream(bm.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cc_label kernel launch failed on the {path} "

@@ -110,7 +110,7 @@ def test_report_numbers_are_finite(report):
         "dense_tile_det_page"]
     assert 0 < roof["stages"][1]["pct_of_rec_flops"] < 100
     # the kernel counts only count the card's launches
-    assert all(v == {"shared": 0, "global": 0}
+    assert all(v == {"shared": 0, "cluster": 0, "global": 0}
                for v in report["cc_label_launches_by_section"].values())
 
 

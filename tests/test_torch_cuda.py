@@ -33,7 +33,8 @@ def cuda():
 
 @pytest.mark.parametrize("shape,density,n_iters", [
     ((16, 240, 240), 0.5, 4), ((16, 240, 240), 0.72, 6),
-    ((4, 512, 512), 0.5, 4), ((3, 37, 70), 0.3, 5), ((1, 1, 1), 0.0, 4)])
+    ((4, 512, 512), 0.5, 4), ((3, 37, 70), 0.3, 5), ((1, 1, 1), 0.0, 4),
+    ((2, 448, 192), 0.5, 4)])
 def test_kernel_bit_exact(cuda, shape, density, n_iters):
     g = torch.Generator(device=cuda).manual_seed(0)
     bm = torch.rand(shape, generator=g, device=cuda) > density
@@ -46,14 +47,19 @@ def test_kernel_bit_exact(cuda, shape, density, n_iters):
 
 # the edges of the shared-memory path: the lanes' grids, the most pixels a
 # uint16 label can index (255 x 257 = 65,535), one pixel more than that
-# (256 x 256), a width that is no multiple of 8, rows wider than a warp's
-# 256 pixels, one pixel, no sweep at all
+# (256 x 256, the cluster path's), a width that is no multiple of 8, rows
+# wider than a warp's 256 pixels, one pixel, no sweep at all; the cluster
+# path on the C5 grids, an odd number of sweeps, a height that is no
+# multiple of 8 and a width that is no multiple of 4; the general path past
+# the cluster path's widest row
 @pytest.mark.parametrize("shape,density,n_iters,path", [
     ((16, 240, 240), 0.5, 4, "shared"), ((2, 128, 128), 0.5, 4, "shared"),
-    ((1, 255, 257), 0.5, 4, "shared"), ((1, 256, 256), 0.5, 4, "global"),
+    ((1, 255, 257), 0.5, 4, "shared"), ((1, 256, 256), 0.5, 4, "cluster"),
     ((3, 37, 70), 0.3, 5, "shared"), ((1, 3, 1000), 0.2, 6, "shared"),
     ((1, 1, 1), 0.0, 4, "shared"), ((2, 64, 64), 0.6, 0, "shared"),
-    ((4, 512, 512), 0.5, 4, "global")])
+    ((4, 512, 512), 0.5, 4, "cluster"), ((2, 512, 192), 0.72, 5, "cluster"),
+    ((3, 448, 512), 0.3, 6, "cluster"), ((2, 448, 192), 0.5, 4, "cluster"),
+    ((2, 301, 258), 0.4, 4, "cluster"), ((1, 70, 1100), 0.5, 4, "global")])
 def test_kernel_bit_exact_on_the_path_it_picks(cuda, shape, density, n_iters,
                                                path):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -63,17 +69,22 @@ def test_kernel_bit_exact_on_the_path_it_picks(cuda, shape, density, n_iters,
     before = dict(counter.launches_by_path)
     got = cc_label.label_components(bm, n_iters)
     torch.cuda.synchronize()
-    other = "global" if path == "shared" else "shared"
-    assert counter.launches_by_path[path] == before[path] + 1
-    assert counter.launches_by_path[other] == before[other]
+    assert counter.launches_by_path == {
+        p: before[p] + (p == path) for p in cc_label.PATHS}
     assert torch.equal(got, want)
-    # the general path takes every grid; the shared path only what fits
+    # the general path takes every grid; the cluster path every grid whose
+    # band fits; the shared path only what fits it
     forced = counter(bm, n_iters, path="global")
     torch.cuda.synchronize()
     assert counter.launches_by_path["global"] == before["global"] + 1 \
         + (path == "global")
     assert torch.equal(forced, want)
-    if path == "global":
+    if cc_label.fits_cluster(*shape[1:]):
+        assert torch.equal(counter(bm, n_iters, path="cluster"), want)
+    else:
+        with pytest.raises(ValueError):
+            counter(bm, n_iters, path="cluster")
+    if path != "shared":
         with pytest.raises(ValueError):
             counter(bm, n_iters, path="shared")
 
@@ -84,7 +95,9 @@ def test_kernel_takes_uint8_and_bool_bitmaps_alike(cuda):
     want = cc_label.label_components_torch(bm, 4)
     for same in (bm, bm.to(torch.uint8) * 7, bm.transpose(1, 2).contiguous()
                  .transpose(1, 2)):
-        assert torch.equal(cc_label.label_components_cuda(same, 4), want)
+        for path in cc_label.PATHS:
+            assert torch.equal(
+                cc_label.label_components_cuda(same, 4, path=path), want)
 
 
 def test_kernel_rejects_unbatched_input(cuda):
