@@ -127,12 +127,45 @@ Phases, in order; any failure exits non-zero:
      numpy twins on every fixture page (phase 2's, the lane fixture's and
      the A4 pages), host ms of a 16-page chunk's decode and pack on both
      routes in turns, and phase 3's fused window on both routes in turns.
+  18. assets: the reference's asset recipes through the port's scripts
+     (ocrjax_torch.scripts), at full width from the shipped assets, against
+     ocrjax's scripts run on the same cut recipes on a CPU
+     (expected_jax_assets_fp32.json, written by tests/test_torch_fixture.py
+     --write-assets). (a) the renderer's versions and layout engine (libraqm
+     or Pillow's basic layout); digests of the eval tiers' pages, the e2e
+     pages and render_traffic's first 16 pages against ocrjax's under the
+     same layout, equal or not (under raqm render_traffic's pages must then
+     equal bench_traffic.npz's); (b) scripts/finetune_r5_soft.sh's flags
+     through train_rec_assets in float32 with the steps and det-crop pages
+     cut, a first invocation ending after its checkpoint at step 20 and a
+     second resuming there; (c) finetune_r3_det.sh's through
+     train_det_assets; (d) train_cls_assets, steps and crop pages cut, from
+     flax's initial classifier (cls_init_jax.npz); the rec and cls runs
+     train on ocrjax's det crop sets (det_crops_jax.npz), and the crops
+     the port makes are held against them (at least crops_paired of them
+     paired by text and width); (e) soup_weights of the
+     shipped rec asset and (b)'s candidate; (f) eval_multiseed --degrade,
+     seeds cut, on the shipped assets and on the soup. Bars (the JSON's):
+     (i) the shipped assets' eval numbers equal ocrjax's on every tier
+     whose pages equal its pages (within eval_atol otherwise, printed);
+     the soup's, averaged over the tiers, within eval_atol;
+     (ii) where this layout is the reference runs' and a recipe's batches
+     equal ocrjax's (by digest), the loss at each such step within
+     loss_rtol; (iii) always, the mean loss of each 20-step window within
+     5% and each final eval number within 0.03; (g) (b)-(d) again in
+     bfloat16 without the resume: (iv) windowed losses within 5% of
+     float32's over the windows of the same batches in both runs (the
+     float32 rec run's resume reseeds its second half); the device's busy
+     share and operations a step over steps 3-7 (torch.profiler), ms a
+     step and render ms a step over steps 9 to N-1 (host clock). The whole
+     record goes to ocrjax_torch/_build/assets_phase.json.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
-7-12, 13, 14 and 16; conv_fused: 4); the counts are set to 0 just before
-such a phase and read just after, in all and by path; the lane phases 2,
-3, 5-8, 10, 11, 12's page calls, 13's page sections, 14 and 16's fused
-call must label on the shared path only, phase 9, 12's tiled call, 13's
-C5 sections and 16's tiled call on the cluster path only. The last lines
+7-12, 13, 14, 16 and 18; conv_fused: 4); the counts are set to 0 just
+before such a phase and read just after, in all and by path; the lane
+phases 2, 3, 5-8, 10, 11, 12's page calls, 13's page sections, 14, 16's
+fused call and 18 must label on the shared path only, phase 9, 12's
+tiled call, 13's C5 sections and 16's tiled call on the cluster path
+only. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
@@ -2081,6 +2114,718 @@ def phase_native(eng16, pages, lane_fixture, native_in_phase3,
 
 
 
+# ---------------------------------------------------------------------------
+# 18. assets: the reference's asset recipes through the port's scripts
+# ---------------------------------------------------------------------------
+
+# scripts/finetune_r5_soft.sh's and scripts/finetune_r3_det.sh's flags but
+# --ckpt-dir and --out (the runner gives its own); train_cls_assets and
+# eval_multiseed run at their defaults but the cuts below
+REC_RECIPE = ["--finetune", "--steps", "4000", "--lr", "3e-4",
+              "--mix-det-crops", "192", "--det-rotation", "10",
+              "--p-word", "0.25", "--confusable-bias", "2", "--l-bias", "2",
+              "--p-space", "0.06", "--aug-rotation", "4", "--quantize-p",
+              "0.5", "--stretch", "0.15", "--font-bias", "DejaVuSans.ttf:2",
+              "--font-anneal-frac", "0.25", "--degrade", "0.45",
+              "--degrade-anneal-frac", "0.1", "--flat-snap", "0.3",
+              "--ent-reg", "0.03"]
+DET_RECIPE = ["--finetune", "--steps", "1500", "--p-dense", "0.35",
+              "--degrade", "0.3", "--p-word", "0.25"]
+# what each run cuts: flag -> (the recipe's value, this run's)
+ASSET_CUTS = {
+    "rec": {"--steps": (4000, 40), "--mix-det-crops": (192, 24)},
+    "det": {"--steps": (1500, 40)},
+    "cls": {"--steps": (8000, 40), "--crop-pages": (96, 8)},
+    "eval": {"--straight-seeds": (8, 1), "--rotated-seeds": (6, 1),
+             "--degrade-seeds": (4, 1)},
+}
+# the rec run's first invocation ends right after its checkpoint here; a
+# second invocation resumes from it
+ASSET_RESUME_AT = 20
+SOUP_ALPHA = 0.5
+# the eval tiers of eval_multiseed --degrade: (name, seeds' start, pages,
+# render kwargs); the count of seeds is the cut's
+EVAL_TIERS = (("straight", 123, 8, {}),
+              ("rotated", 9, 4, {"max_rotation": 10.0}),
+              ("heldout_renderer", 123, 8, {"supersample": 3}),
+              *((f"degraded_{lv}", 321, 4, {"degrade_level": lv})
+                for lv in (0.25, 0.5, 0.75, 1.0)))
+EVAL_KEYS = ("line_exact_match", "det_recall", "char_error_rate")
+STEP_FACTORY = {"rec": "make_train_step", "det": "make_det_train_step",
+                "cls": "make_cls_train_step"}
+RESULT_KEYS = ("exact_match", "recall", "precision", "accuracy")
+
+
+def cut_argv(recipe: list, kind: str) -> list:
+    """The recipe's flags with ASSET_CUTS[kind]'s values in place."""
+    argv = list(recipe)
+    for flag, (_, v) in ASSET_CUTS[kind].items():
+        if flag in argv:
+            argv[argv.index(flag) + 1] = str(v)
+        else:
+            argv += [flag, str(v)]
+    return argv
+
+
+def digest(a) -> str:
+    """A short sha256 of an array's bytes."""
+    import hashlib
+    import numpy as np
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+class Preempted(Exception):
+    """Raised right after a checkpoint is written: the end of a run window."""
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, value):
+    """obj.name = value for the duration. The attribute held in obj's own
+    namespace comes back as it was (a classmethod included); one that obj
+    only inherits is removed again."""
+    had = name in vars(obj)
+    old = vars(obj).get(name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        if had:
+            setattr(obj, name, old)
+        else:
+            delattr(obj, name)
+
+
+def crop_key(n_pages: int = 256, seed: int = 17, width: int = 192,
+             max_rotation: float = 0.0, p_word: float = 0.0) -> str:
+    """A generate_det_crops call's name (its defaults filled in)."""
+    return (f"n{n_pages}_s{seed}_w{width}_r{float(max_rotation)}"
+            f"_p{float(p_word)}")
+
+
+def compare_crops(got, want) -> dict:
+    """A crop set against ocrjax's (images, widths, texts): crops paired
+    in order by (text, width) (difflib), the pairs' largest pixel gap and
+    the share of their pixels that differ."""
+    import difflib
+    import numpy as np
+    a = list(zip(want[2], (int(w) for w in want[1])))
+    b = list(zip(got.texts, (int(w) for w in got.widths)))
+    blocks = difflib.SequenceMatcher(a=a, b=b, autojunk=False
+                                     ).get_matching_blocks()
+    pairs = [(i + k, j + k) for i, j, n in blocks for k in range(n)]
+    gaps = [np.abs(got.images[j].astype(np.int16) - want[0][i])
+            for i, j in pairs]
+    return {"ocrjax": len(a), "port": len(b), "paired": len(pairs),
+            "max_px": int(max((g.max() for g in gaps), default=0)),
+            "px_share": float(sum((g > 0).sum() for g in gaps)
+                              / max(sum(g.size for g in gaps), 1))}
+
+
+def _loss_value(out) -> float:
+    """The scalar loss in a step function's output (the port's steps
+    return it, alone or first; ocrjax's return it after the state)."""
+    if getattr(out, "ndim", None) == 0:
+        return float(out)
+    return float(next(x for x in out if getattr(x, "ndim", None) == 0))
+
+
+def run_script(mods: dict, main, argv: list, kind: str = None,
+               fp32: bool = True, first_step: int = 1,
+               ckpt_every: int = None, stop_at: int = None,
+               cls_init: dict = None, crops: dict = None,
+               profile: bool = False) -> dict:
+    """Runs a script's main() with sys.argv = argv, in the package whose
+    modules `mods` holds (this port's or, from the tests, ocrjax's: the same
+    layout), with the trainer `kind` ("rec", "det", "cls") instrumented:
+      * it logs every step's loss (log_every=1) and, with ckpt_every,
+        checkpoints that often; with stop_at, the run ends by Preempted
+        right after the checkpoint at that step, as a run window would;
+      * fp32: the trainer's config and every OcrEngine.from_pretrained in
+        float32 (mods["fp32_config"]); else the scripts' default, bf16;
+      * each step's input images are hashed (the batches' digests), and
+        so is every synthetic render (make_line_batch, make_det_batch,
+        render_page: the render digests; det crops are not renders);
+      * cls_init (flat flax variables) stands in for the port's random
+        init of the classifier (the cls script trains from scratch, and
+        the port's init is not flax's);
+      * every det crop set that train.det_crops.generate_det_crops makes
+        is kept (crop_sets, by crop_key); with crops (crop_key -> ocrjax's
+        set) the set made here is held against ocrjax's (compare_crops)
+        and ocrjax's trains: which crops survive the width cap follows the
+        ink refinement, which a box 0.004 px off can tip, and a set one
+        crop longer draws other crops at every later step;
+      * profile (the card only): steps 3 to 2 + PROFILED_STEPS in
+        torch.profiler (CUDA activity): the device's busy share (kernel
+        and copy time over the wall) and the device operations a step;
+        the later steps but the last on the host clock alone: ms a step
+        and render ms a step (make_line_batch, make_det_batch).
+    Returns {losses: [[step, loss]], digests, render_digests, result:
+    {eval numbers}, crop_sets, crop_pages (the digests of the pages each
+    crop set was cut from), crops: {crop_key: compare_crops}, timing}.
+    """
+    rec = {"losses": [], "digests": [], "render_digests": [], "renders": [],
+           "crop_sets": {}, "crop_pages": {}, "crops": {}}
+    calls = []
+    patches = [patched(sys, "argv", [f"{kind or 'script'}"] + list(argv))]
+    if fp32:
+        api = mods["api"]
+        orig_fp = api.OcrEngine.from_pretrained
+
+        def from_pretrained(*a, **kw):
+            if kw.get("config") is None:
+                kw["config"] = mods["fp32_config"]()
+            return orig_fp(*a, **kw)
+        patches.append(patched(api.OcrEngine, "from_pretrained",
+                               from_pretrained))
+    if kind:
+        tmod = mods[f"{kind}_trainer"]
+        orig_train = getattr(tmod, f"train_{kind}")
+        orig_factory = getattr(tmod, STEP_FACTORY[kind])
+
+        def train(*a, **kw):
+            if fp32:
+                kw["config"] = kw["config"].replace(compute_dtype="float32")
+            kw["log_every"] = 1
+            if ckpt_every:
+                kw["ckpt_every"] = ckpt_every
+            rec["steps"] = kw["steps"]
+            res = orig_train(*a, **kw)
+            rec["result"] = {k: float(getattr(res, k)) for k in RESULT_KEYS
+                             if hasattr(res, k)}
+            return res
+
+        def factory(*a, **kw):
+            step = orig_factory(*a, **kw)
+
+            def counted(*args, **kws):
+                i = len(calls)
+                if profile and i in (2, 2 + PROFILED_STEPS,
+                                     rec["steps"] - first_step):
+                    _profile_edge(rec, i, rec["steps"] - first_step)
+                calls.append(time.perf_counter())
+                images = next(x for x in args
+                              if str(getattr(x, "dtype", "")).endswith(
+                                  "uint8"))
+                rec["digests"].append(digest(mods["to_numpy"](images)))
+                out = step(*args, **kws)
+                rec["losses"].append([first_step + i, _loss_value(out)])
+                return out
+            return counted
+
+        def hashed(fn, images, timed):
+            def render(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if timed:
+                    rec["renders"].append((t0, time.perf_counter()))
+                rec["render_digests"].append(digest(images(out)))
+                return out
+            return render
+
+        synth = mods["synth"]
+        patches += [patched(tmod, f"train_{kind}", train),
+                    patched(tmod, STEP_FACTORY[kind], factory),
+                    patched(synth, "make_line_batch", hashed(
+                        synth.make_line_batch, lambda o: o.images, True)),
+                    patched(mods["det_gt"], "make_det_batch", hashed(
+                        mods["det_gt"].make_det_batch, lambda o: o[0],
+                        True)),
+                    patched(synth, "render_page", hashed(
+                        synth.render_page, lambda o: o[0], False))]
+        if stop_at:
+            ck = mods["checkpoint"]
+            orig_save = ck.save_train_state
+
+            def save(path, step, *a, **kw):
+                orig_save(path, step, *a, **kw)
+                if step == stop_at:
+                    raise Preempted(step)
+            patches.append(patched(ck, "save_train_state", save))
+        dc = mods["det_crops"]
+        orig_crops = dc.generate_det_crops
+
+        def generate_det_crops(engine, **kw):
+            key = crop_key(**kw)
+            n = len(rec["render_digests"])
+            made = orig_crops(engine, **kw)
+            rec["crop_sets"][key] = made
+            rec["crop_pages"][key] = rec["render_digests"][n:]
+            if crops is None:
+                return made
+            if key not in crops:
+                fail(f"no committed ocrjax crop set for {key}")
+            rec["crops"][key] = compare_crops(made, crops[key])
+            return dc.DetCropSet(*crops[key])
+        patches.append(patched(dc, "generate_det_crops", generate_det_crops))
+        if cls_init is not None:
+            W = mods["weights"]
+            patches.append(patched(
+                W, "init_random_",
+                lambda model, seed: W.load_model_variables(model, cls_init)))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        try:
+            main()
+        except Preempted:
+            if not stop_at:
+                raise
+    rec["first_step"] = first_step
+    if profile:
+        t0, t1 = rec.pop("window")
+        p0, p1 = rec.pop("profiled")
+        n = rec["steps"] - first_step - 2 - PROFILED_STEPS
+        render = sum(b - a for a, b in rec["renders"] if t0 <= a < t1)
+        rec["timing"] = {"ms_a_step": (t1 - t0) * 1e3 / n,
+                         "render_ms_a_step": render * 1e3 / n,
+                         "steps_timed": n,
+                         "device_busy_share": rec.pop("device_s") / (p1 - p0),
+                         "kernels_a_step": rec.pop("kernels") / PROFILED_STEPS,
+                         "steps_profiled": PROFILED_STEPS}
+    del rec["renders"]
+    return rec
+
+
+# run_script's profile: steps 3 to 2 + PROFILED_STEPS in torch.profiler (a
+# rec step launches thousands of kernels, and parsing 37 steps of them took
+# a minute on the card's host), then the rest but the last on the host
+# clock alone
+PROFILED_STEPS = 5
+
+
+def _profile_edge(rec: dict, i: int, last: int) -> None:
+    """At step call i (0-based): 2 opens the profiler; 2 + PROFILED_STEPS
+    closes it and opens the host-clock window; the last call (`last`)
+    closes that. The device is idle there: the trainer read the last
+    loss."""
+    import torch
+    torch.cuda.synchronize()
+    now = time.perf_counter()
+    if i == 2:
+        if last <= 2 + PROFILED_STEPS + 1:
+            fail(f"{last + 1} steps are too few to profile")
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        rec["prof"], rec["profiled"] = prof, [now]
+    elif i == 2 + PROFILED_STEPS:
+        prof = rec.pop("prof")
+        prof.stop()
+        rec["profiled"].append(now)
+        events = prof.key_averages()
+        rec["device_s"] = sum(e.self_device_time_total for e in events) / 1e6
+        rec["kernels"] = sum(e.count for e in events)
+        rec["window"] = [time.perf_counter()]
+    elif i == last:
+        rec["window"].append(now)
+
+
+def windowed(losses: list, width: int) -> list:
+    """Mean loss of each whole window of `width` steps."""
+    vals = [v for _, v in losses]
+    return [sum(vals[i:i + width]) / width
+            for i in range(0, len(vals) - width + 1, width)]
+
+
+def run_rec_recipe(mods, main, workdir: str, extra=(), fp32=True,
+                   crops=None, resume=True, profile=False) -> dict:
+    """finetune_r5_soft.sh's cut recipe: with resume, a first invocation
+    ends after its checkpoint at ASSET_RESUME_AT and a second resumes
+    there; the candidate lands in workdir/rec_candidate.safetensors."""
+    out = os.path.join(workdir, "rec_candidate.safetensors")
+    argv = cut_argv(REC_RECIPE, "rec") + [
+        "--ckpt-dir", os.path.join(workdir, "rec_ckpt"), "--out", out,
+        *extra]
+    if not resume:
+        return run_script(mods, main, argv, "rec", fp32=fp32, crops=crops,
+                          profile=profile)
+    first = run_script(mods, main, argv, "rec", fp32=fp32, crops=crops,
+                       ckpt_every=ASSET_RESUME_AT, stop_at=ASSET_RESUME_AT)
+    second = run_script(mods, main, argv, "rec", fp32=fp32, crops=crops,
+                        ckpt_every=ASSET_RESUME_AT,
+                        first_step=ASSET_RESUME_AT + 1)
+    if len(first["losses"]) != ASSET_RESUME_AT:
+        fail(f"rec: the first invocation ran {len(first['losses'])} steps, "
+             f"not {ASSET_RESUME_AT}")
+    return {**second, "resumed_at": ASSET_RESUME_AT,
+            **{k: first[k] + second[k] for k in (
+                "losses", "digests", "render_digests")}}
+
+
+def run_asset_recipes(mods: dict, scripts: dict, workdir: str, extra=(),
+                      fp32: bool = True, cls_init: dict = None,
+                      crops: dict = None, on_phase=None) -> dict:
+    """(b)-(f) of phase 18 in one package: the cut rec recipe with its
+    resume, the det recipe, train_cls_assets, the soup of the shipped rec
+    asset and the rec candidate, and eval_multiseed --degrade on the
+    shipped assets and on the soup. scripts: name -> main; extra: flags
+    for every script but the soup (the port's --cpu); crops, cls_init: as
+    run_script's; on_phase(name) is called after each part (launch
+    counts). Every det crop set made lands in out["crop_sets"]."""
+    os.makedirs(workdir, exist_ok=True)
+    on_phase = on_phase or (lambda name: None)
+    out = {}
+    out["rec"] = run_rec_recipe(mods, scripts["train_rec_assets"], workdir,
+                                extra, fp32, crops)
+    on_phase("rec")
+    det_out = os.path.join(workdir, "det_candidate.safetensors")
+    out["det"] = run_script(mods, scripts["train_det_assets"], cut_argv(
+        DET_RECIPE, "det") + ["--ckpt-dir", os.path.join(workdir, "det_ckpt"),
+                              "--out", det_out, *extra], "det", fp32=fp32)
+    on_phase("det")
+    out["cls"] = run_script(mods, scripts["train_cls_assets"], cut_argv(
+        [], "cls") + ["--out", os.path.join(workdir, "cls.safetensors"),
+                      *extra], "cls", fp32=fp32, cls_init=cls_init,
+        crops=crops)
+    on_phase("cls")
+    out["crop_sets"] = {}
+    for kind in ("rec", "det", "cls"):
+        out["crop_sets"].update(out[kind].pop("crop_sets"))
+    shipped = os.path.join(ROOT, "assets", "rec.safetensors")
+    soup = os.path.join(workdir, "rec_soup.safetensors")
+    run_script(mods, scripts["soup_weights"], [
+        shipped, os.path.join(workdir, "rec_candidate.safetensors"), soup,
+        "--alpha", str(SOUP_ALPHA)], fp32=False)
+    for name, weights in (("eval_shipped", []), ("eval_soup",
+                                                ["--weights", soup])):
+        js = os.path.join(workdir, f"{name}.json")
+        run_script(mods, scripts["eval_multiseed"], [
+            "--degrade", *cut_argv([], "eval"), "--json", js, *weights,
+            *extra], fp32=fp32)
+        with open(js) as f:
+            out[name] = json.load(f)
+        on_phase(name)
+    return out
+
+
+def render_digests(synth, e2e_pages, traffic_pages) -> dict:
+    """Digests of what one package's renderers draw: each eval tier's
+    pages at the cut seeds (and its count of ground-truth lines),
+    evaluate_e2e's default 8 pages (seed 123), the bench traffic's first 16
+    pages, and the six font files. e2e_pages(n_pages, seed, **kw) -> (pages,
+    their ground-truth texts) and traffic_pages() render; synth is the
+    package's renderer module."""
+    import numpy as np
+    n_seeds = {"straight": "--straight-seeds", "rotated": "--rotated-seeds",
+               "heldout_renderer": "--straight-seeds"}
+    out = {}
+    for name, start, n_pages, kw in EVAL_TIERS:
+        seeds = ASSET_CUTS["eval"][n_seeds.get(name, "--degrade-seeds")][1]
+        drawn = [e2e_pages(n_pages, s, **kw)
+                 for s in range(start, start + seeds)]
+        out[f"eval_{name}"] = digest(np.stack([p for d in drawn
+                                               for p in d[0]]))
+        out[f"lines_eval_{name}"] = sum(len(t) for d in drawn for t in d[1])
+    out["e2e_default"] = digest(np.stack(e2e_pages(8, 123)[0]))
+    out["traffic_pages16"] = digest(traffic_pages())
+    fonts = b""
+    for path in synth.FONTS:
+        with open(path, "rb") as f:
+            fonts += f.read()
+    out["fonts"] = digest(np.frombuffer(fonts, np.uint8))
+    return out
+
+
+def port_modules() -> dict:
+    """The port's modules as run_script takes them."""
+    from ocrjax_torch import api, weights
+    from ocrjax_torch.train import (checkpoint, cls_trainer, det_crops,
+                                    det_gt, det_trainer, rec_trainer, synth)
+    return {"api": api, "weights": weights, "checkpoint": checkpoint,
+            "rec_trainer": rec_trainer, "det_trainer": det_trainer,
+            "cls_trainer": cls_trainer, "synth": synth, "det_gt": det_gt,
+            "det_crops": det_crops,
+            "fp32_config": lambda: api.asset_config(compute_dtype="float32"),
+            "to_numpy": lambda t: t.cpu().numpy()}
+
+
+def port_scripts() -> dict:
+    """name -> main of the port's asset scripts."""
+    from ocrjax_torch.scripts import (eval_multiseed, soup_weights,
+                                      train_cls_assets, train_det_assets,
+                                      train_rec_assets)
+    return {m.__name__.rsplit(".", 1)[1]: m.main for m in (
+        train_rec_assets, train_det_assets, train_cls_assets, soup_weights,
+        eval_multiseed)}
+
+
+def port_render_digests() -> dict:
+    """render_digests of the port's renderers (train.e2e_eval.render_e2e,
+    bench_lib.render_traffic's first 16 pages)."""
+    from ocrjax_torch import bench_lib
+    from ocrjax_torch.api import ASSETS, asset_config
+    from ocrjax_torch.charset import Charset
+    from ocrjax_torch.train import e2e_eval, synth
+    charset = Charset.from_file(os.path.join(ASSETS, "rec.charset.txt"))
+    n = asset_config().line_bucket_for_count(256)
+    return render_digests(
+        synth,
+        lambda n_pages, seed, **kw: e2e_eval.render_e2e(
+            charset, n_pages=n_pages, seed=seed, **kw),
+        lambda: bench_lib.render_traffic(charset, pages=16, dense_pages=0,
+                                         line_bucket=n)["pages"])
+
+
+def load_cls_init() -> dict:
+    """flax's initial classifier variables (train_cls's model.init at seed
+    0), committed: the card's cls runs start where ocrjax's start."""
+    import numpy as np
+    with np.load(os.path.join(TESTDATA, "cls_init_jax.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def load_crops() -> dict:
+    """ocrjax's det crop sets of the cut recipes, committed: crop_key ->
+    (images, widths, texts)."""
+    import numpy as np
+    with np.load(os.path.join(TESTDATA, "det_crops_jax.npz")) as f:
+        keys = {k.rsplit("__", 1)[0] for k in f.files}
+        return {k: (f[f"{k}__images"], f[f"{k}__widths"],
+                    str(f[f"{k}__texts"]).split("\n")) for k in keys}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def hold_recipe(kind: str, got: dict, want: dict, bars: dict,
+                same_layout: bool, failures: list) -> dict:
+    """Bars (ii) and (iii) of one cut recipe against ocrjax's run, a
+    missed bar appended to failures; returns the gaps. (ii) holds where
+    this renderer's layout is the reference runs' and every synthetic
+    render of the run equals ocrjax's."""
+    steps = [s for s, _ in want["losses"]]
+    if [s for s, _ in got["losses"]] != steps:
+        fail(f"assets {kind}: steps {[s for s, _ in got['losses']]} "
+             f"against ocrjax's {steps}")
+    renders_equal = got["render_digests"] == want["render_digests"]
+    out = {"batches_equal": sum(a == b for a, b in zip(got["digests"],
+                                                      want["digests"])),
+           "renders_equal": renders_equal, "steps": len(steps)}
+    print(f"  (a) {kind}: first batch equal to ocrjax's "
+          f"{got['digests'][0] == want['digests'][0]}, {out['batches_equal']}"
+          f" of {len(steps)} batches equal; synthetic renders equal "
+          f"{renders_equal} ({len(got['render_digests'])})")
+    bar = bars["loss_rtol"][kind]
+    if same_layout and renders_equal:
+        out["loss_gap"] = max(_rel(a, b) for (_, a), (_, b) in
+                              zip(got["losses"], want["losses"]))
+        print(f"  (ii) {kind}: worst relative loss gap over the "
+              f"{len(steps)} steps {out['loss_gap']:.3e} (bar {bar:.3e})")
+        if out["loss_gap"] > bar:
+            failures.append(f"{kind}: the loss gap {out['loss_gap']} to "
+                            f"ocrjax passes bar (ii) {bar}")
+    else:
+        why = ("its synthetic renders differ from ocrjax's" if same_layout
+               else "this Pillow lays text out otherwise than the "
+                    "reference runs'")
+        print(f"  (ii) {kind}: not applied: {why}")
+    wg = windowed(got["losses"], bars["window"])
+    ww = windowed(want["losses"], bars["window"])
+    out["window_gap"] = max(_rel(a, b) for a, b in zip(wg, ww))
+    out["eval"] = got["result"]
+    out["eval_gap"] = max(abs(got["result"][k] - v)
+                          for k, v in want["result"].items())
+    print(f"  (iii) {kind}: {bars['window']}-step mean losses "
+          f"{[round(v, 5) for v in wg]} (ocrjax {[round(v, 5) for v in ww]})"
+          f", worst gap {out['window_gap']:.4f} (bar {bars['window_rtol']});"
+          f" eval {got['result']} (ocrjax {want['result']}), worst gap "
+          f"{out['eval_gap']:.4f} (bar {bars['eval_atol']})")
+    if out["window_gap"] > bars["window_rtol"]:
+        failures.append(f"{kind}: windowed losses {wg} not within "
+                        f"{bars['window_rtol']} of ocrjax's {ww}")
+    if out["eval_gap"] > bars["eval_atol"]:
+        failures.append(f"{kind}: eval {got['result']} not within "
+                        f"{bars['eval_atol']} of ocrjax's {want['result']}")
+    return out
+
+
+def hold_eval(name: str, got: dict, want: dict, pages_equal: dict,
+              lines: dict, bars: dict, exact: bool, failures: list) -> dict:
+    """eval_multiseed's numbers against ocrjax's. exact (the shipped
+    assets, bar (i)): equal on every tier whose pages equal ocrjax's
+    pages; on a tier whose pages differ (lines: its ground-truth lines),
+    within eval_atol or one line's share, whichever is more. Else (the
+    soup, whose candidate trained here): each number's mean over the tiers
+    within eval_atol (a tier holds 20-30 lines, so one line moves it by
+    0.03-0.05). A missed bar is appended to failures."""
+    if list(got) != list(want):
+        fail(f"assets {name}: tiers {list(got)} against {list(want)}")
+    worst = {t: max(abs(got[t][k] - w[k]) for k in EVAL_KEYS)
+             for t, w in want.items()}
+    if exact:
+        for tier, gap in worst.items():
+            if pages_equal.get(f"eval_{tier}"):
+                if gap != 0:
+                    failures.append(
+                        f"{name} {tier}: {got[tier]} on the pages ocrjax "
+                        f"read differ from its {want[tier]} (bar (i))")
+                continue
+            allow = max(bars["eval_atol"], 1.0 / lines[f"lines_eval_{tier}"])
+            print(f"  (i) {name} {tier}: other pages than ocrjax's; gap "
+                  f"{gap:.4f} against {allow:.4f} (one line of "
+                  f"{lines[f'lines_eval_{tier}']})")
+            if gap > allow + 1e-9:
+                failures.append(f"{name} {tier}: a gap of {gap} to "
+                                f"ocrjax's numbers on other pages passes "
+                                f"{allow}")
+    else:
+        for k in EVAL_KEYS:
+            gap = abs(sum(got[t][k] - w[k] for t, w in want.items())
+                      / len(want))
+            if gap > bars["eval_atol"]:
+                failures.append(f"{name}: the tiers' mean {k} is {gap} "
+                                f"off ocrjax's, past {bars['eval_atol']}")
+    print(f"  {name}: line exact by tier "
+          + json.dumps({t: round(got[t]["line_exact_match"], 4)
+                        for t in got})
+          + " (ocrjax " + json.dumps(
+              {t: round(want[t]["line_exact_match"], 4) for t in want})
+          + "); worst gap a tier over exact, recall, CER "
+          + json.dumps({t: round(v, 5) for t, v in worst.items()}))
+    return worst
+
+
+def phase_assets(counters) -> tuple:
+    """(a)-(g) of phase 18; returns (K1's launches by part, the record)."""
+    import cv2
+    import numpy as np
+    import PIL
+    from PIL import features
+    from ocrjax_torch.train import synth
+    want = load_json("expected_jax_assets_fp32.json")
+    bars = want["bars"]
+    layout = synth.layout_engine()
+    versions = {"pillow": PIL.__version__,
+                "freetype": features.version("freetype2"),
+                "raqm": features.version("raqm"), "layout": layout,
+                "opencv": cv2.__version__}
+    print(f"  renderer here: {json.dumps(versions)}; ocrjax's runs: "
+          + json.dumps(want["renderer"]))
+    print("  cuts, flag: [the recipe's value, this run's]: "
+          + json.dumps(ASSET_CUTS) + f"; rec resumes at step "
+          f"{ASSET_RESUME_AT}; soup alpha {SOUP_ALPHA}")
+    # (a) rendering
+    t0 = time.perf_counter()
+    got_dig = port_render_digests()
+    ref_dig = want["digests"].get(layout, {})
+    pages_equal = {k: v == ref_dig.get(k) for k, v in got_dig.items()
+                   if not k.startswith("lines_")}
+    print(f"  (a) renders equal to ocrjax's under the {layout} layout "
+          f"({time.perf_counter() - t0:.1f} s): " + json.dumps(pages_equal))
+    if not pages_equal["fonts"]:
+        fail("the shipped fonts differ from the reference's")
+    if layout == "raqm" and pages_equal["traffic_pages16"]:
+        from ocrjax_torch import bench_lib
+        from ocrjax_torch.api import ASSETS, asset_config
+        from ocrjax_torch.charset import Charset
+        cs = Charset.from_file(os.path.join(ASSETS, "rec.charset.txt"))
+        pages = bench_lib.render_traffic(
+            cs, pages=16, dense_pages=0,
+            line_bucket=asset_config().line_bucket_for_count(256))["pages"]
+        with np.load(os.path.join(TESTDATA, "bench_traffic.npz")) as f:
+            if not np.array_equal(pages, f["pages"][:16]):
+                fail("render_traffic's pages differ from bench_traffic.npz")
+        print("  render_traffic's 16 pages equal bench_traffic.npz's")
+    # (b)-(f) in float32
+    work = os.path.join(PKG, "_build", "assets_run")
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {}
+
+    def on_phase(name):
+        launches[name] = only_path(f"assets {name}", "shared")
+        reset(counters)
+    mods, scripts = port_modules(), port_scripts()
+    cls_init, crops = load_cls_init(), load_crops()
+    reset(counters)
+    t0 = time.perf_counter()
+    got = run_asset_recipes(mods, scripts, os.path.join(work, "fp32"),
+                            cls_init=cls_init, crops=crops,
+                            on_phase=on_phase)
+    fp32_s = time.perf_counter() - t0
+    del got["crop_sets"]
+    failures = []
+    for kind in ("rec", "cls"):
+        for key, c in got[kind]["crops"].items():
+            same = (got[kind]["crop_pages"][key]
+                    == want["jax"][kind]["crop_pages"][key])
+            print(f"  det crops {key} ({kind}): {c['port']} crops against "
+                  f"ocrjax's {c['ocrjax']}, {c['paired']} paired by text "
+                  f"and width, their pixels differing at {c['px_share']:.4f}"
+                  f" of pixels by at most {c['max_px']}; pages equal to "
+                  f"ocrjax's {same}")
+            if same and c["paired"] < bars["crops_paired"] * c["ocrjax"]:
+                failures.append(
+                    f"det crops {key}: {c['paired']} of ocrjax's "
+                    f"{c['ocrjax']} paired on equal pages, under "
+                    f"{bars['crops_paired']}")
+    same_layout = layout == want["renderer"]["layout"]
+    held = {kind: hold_recipe(kind, got[kind], want["jax"][kind], bars,
+                              same_layout, failures)
+            for kind in ("rec", "det", "cls")}
+    held["eval_shipped"] = hold_eval("eval_shipped", got["eval_shipped"],
+                                     want["jax"]["eval_shipped"],
+                                     pages_equal, got_dig, bars, True,
+                                     failures)
+    held["eval_soup"] = hold_eval("eval_soup", got["eval_soup"],
+                                  want["jax"]["eval_soup"], pages_equal,
+                                  got_dig, bars, False, failures)
+    # (g) the training recipes again in bf16, without the resume
+    t0 = time.perf_counter()
+    bf16 = {"rec": run_rec_recipe(mods, scripts["train_rec_assets"],
+                                  os.path.join(work, "bf16"), fp32=False,
+                                  crops=crops, resume=False, profile=True)}
+    bf16["det"] = run_script(mods, scripts["train_det_assets"], cut_argv(
+        DET_RECIPE, "det") + ["--out", os.path.join(work, "bf16", "det.st")],
+        "det", fp32=False, profile=True)
+    bf16["cls"] = run_script(mods, scripts["train_cls_assets"], cut_argv(
+        [], "cls") + ["--out", os.path.join(work, "bf16", "cls.st")], "cls",
+        fp32=False, cls_init=cls_init, crops=crops, profile=True)
+    for r in bf16.values():
+        r.pop("crop_sets")
+        r.pop("crop_pages")
+    launches["bf16"] = only_path("assets bf16", "shared")
+    bf16_s = time.perf_counter() - t0
+    width = bars["window"]
+    for kind, r in bf16.items():
+        w16 = windowed(r["losses"], width)
+        w32 = windowed(got[kind]["losses"], width)
+        # the fp32 rec run resumed at ASSET_RESUME_AT, which reseeds its
+        # batches: only windows of the same batches in both runs compare
+        same = [r["digests"][i * width:(i + 1) * width]
+                == got[kind]["digests"][i * width:(i + 1) * width]
+                for i in range(len(w16))]
+        gaps = [_rel(a, b) for a, b, k in zip(w16, w32, same) if k]
+        if not gaps:
+            fail(f"assets {kind}: no window of the bf16 run has the fp32 "
+                 f"run's batches")
+        held[kind]["bf16_window_gap"] = max(gaps)
+        held[kind]["bf16_timing"] = r["timing"]
+        print(f"  (iv) {kind} bf16: {width}-step mean losses "
+              f"{[round(v, 5) for v in w16]} (fp32 "
+              f"{[round(v, 5) for v in w32]}, the same batches {same}), "
+              f"worst gap {max(gaps):.4f} (bar {bars['bf16_window_rtol']})"
+              f"; eval {r['result']}; timing: " + json.dumps(
+                  {k: round(v, 4) if isinstance(v, float) else v
+                   for k, v in r["timing"].items()}))
+        if max(gaps) > bars["bf16_window_rtol"]:
+            failures.append(f"{kind}: bf16 windowed losses {w16} not "
+                            f"within {bars['bf16_window_rtol']} of fp32's "
+                            f"{w32}")
+    print(f"  wall: fp32 (b)-(f) {fp32_s:.1f} s, bf16 (g) {bf16_s:.1f} s; "
+          f"cc_label by part " + json.dumps(launches))
+    record = {"renderer": versions, "pages_equal": pages_equal,
+              "failures": failures, "held": held, "fp32": got,
+              "bf16": bf16,
+              "wall_s": {"fp32": fp32_s, "bf16": bf16_s}}
+    shutil.rmtree(work, ignore_errors=True)
+    with open(os.path.join(PKG, "_build", "assets_phase.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    if failures:
+        fail("assets: " + "; ".join(failures))
+    return launches, record
+
+
 def main() -> int:
     # cuBLAS's deterministic mode (phase 15) needs this before it starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2152,6 +2897,9 @@ def main() -> int:
     ccl_phases.update(phase_parallel())
     print("== 17. the native host library")
     phase_native(eng16, pages, fixture, native3)
+    print("== 18. assets: the reference's recipes through the port's scripts")
+    assets, _ = phase_assets(counters)
+    ccl_phases.update({f"18 {k}": v for k, v in assets.items()})
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],

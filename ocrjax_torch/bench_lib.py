@@ -102,7 +102,9 @@ def render_traffic(charset, pages: int = 16, lines: int = 256,
         "page_quads": np.asarray(quads, np.float32).reshape(-1, 4, 2),
         "page_texts": _join(texts),
         "page_line_counts": np.asarray(counts, np.int32),
-        "dense": np.stack(dense), "dense_texts": _join(dense_texts),
+        "dense": np.stack(dense) if dense else np.zeros(
+            (0, *dense_size), np.uint8),
+        "dense_texts": _join(dense_texts),
         "dense_line_counts": np.asarray(dense_counts, np.int32),
     }
 

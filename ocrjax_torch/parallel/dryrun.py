@@ -10,9 +10,9 @@ fused program with rec_try_flip, one dp step each of train_det and
 train_cls, and sharded tiled serving on a 600 x 600 page. Rank 0 reports;
 the parent prints one `dryrun_multichip OK: ...` line and returns it. A
 watchdog ends the process with exit code 4 past OCRJAX_DRYRUN_DEADLINE_S
-seconds (default 2400). Where the synthetic renderers cannot run (no PIL,
-or not their fonts, as on the card's machine) the det and cls steps run on
-random batches through the same step functions in place of train_det /
+seconds (default 2400). The det and cls steps render their batches as the
+reference's do; only on a machine without PIL do they run on random
+batches through the same step functions in place of train_det /
 train_cls.
 """
 
@@ -27,10 +27,9 @@ import threading
 
 
 def _can_render() -> bool:
-    """Whether train.synth can render here: PIL and its fonts."""
-    from ocrjax_torch.train import synth
-    return importlib.util.find_spec("PIL") is not None and all(
-        os.path.exists(f) for f in synth.FONTS)
+    """Whether train.synth can render here: PIL (the fonts ship with the
+    package)."""
+    return importlib.util.find_spec("PIL") is not None
 
 
 def _det_cls_steps(TINY, charset, mesh, B: int) -> None:

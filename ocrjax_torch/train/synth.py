@@ -2,10 +2,13 @@
 own copy of ocrjax/train/synth.py, bit for bit the same output at the same
 seeds).
 
-PIL and cv2 are imported inside the functions that use them: the machine
-with the card has neither, so `import ocrjax_torch.train.synth` works there
-and only rendering needs this host (the bench and chip_smoke.py read pages
-rendered here from ocrjax_torch/testdata).
+PIL and cv2 are imported inside the functions that use them, so the module
+imports where they are missing. The six DejaVu faces ship with the package
+(ocrjax_torch/fonts/, under the Bitstream Vera licence in fonts/copyright):
+a machine without system fonts renders the same glyphs, and no other path
+is searched. Text layout is Pillow's: with libraqm (HarfBuzz shaping) where
+Pillow has it, else its basic layout, which kerns otherwise, so the pixels
+follow the layout engine (layout_engine()).
 
 
 No datasets or network exist in this environment (SURVEY.md §0), so training
@@ -18,20 +21,18 @@ construction, which also makes end-to-end string tests meaningful
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ocrjax_torch.charset import Charset
 
-FONTS = [
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSans-Bold.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSerif.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSerif-Bold.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSansMono.ttf",
-    "/usr/share/fonts/truetype/dejavu/DejaVuSansMono-Bold.ttf",
-]
+FONT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "fonts")
+FONTS = [os.path.join(FONT_DIR, name) for name in (
+    "DejaVuSans.ttf", "DejaVuSans-Bold.ttf", "DejaVuSerif.ttf",
+    "DejaVuSerif-Bold.ttf", "DejaVuSansMono.ttf", "DejaVuSansMono-Bold.ttf")]
 
 _font_cache = {}
 
@@ -40,8 +41,16 @@ def _font(path: str, size: int):
     from PIL import ImageFont
     key = (path, size)
     if key not in _font_cache:
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"font file missing: {path}")
         _font_cache[key] = ImageFont.truetype(path, size)
     return _font_cache[key]
+
+
+def layout_engine() -> str:
+    """The text layout Pillow uses here: "raqm" or "basic"."""
+    from PIL import features
+    return "raqm" if features.check("raqm") else "basic"
 
 
 def render_line(

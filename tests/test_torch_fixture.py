@@ -905,6 +905,235 @@ def write_bench_train_fixture() -> None:
     _write_json(TRAIN_EXPECTED, jax_train_expected(batches))
 
 
+ASSETS_EXPECTED = os.path.join(TESTDATA, "expected_jax_assets_fp32.json")
+CLS_INIT = os.path.join(TESTDATA, "cls_init_jax.npz")
+DET_CROPS = os.path.join(TESTDATA, "det_crops_jax.npz")
+# chip_smoke.py phase 18's bars: the mean loss of each 20-step window and
+# each final eval number, always; bf16's windows against fp32's. Each
+# recipe's per-step loss bar (where the card's renders equal ocrjax's) is
+# set from the port's own CPU run of the same recipe: 3x its worst gap to
+# ocrjax, within ASSET_LOSS_RTOL_LIMITS
+ASSET_BARS = {"window": 20, "window_rtol": 0.05, "eval_atol": 0.03,
+              "bf16_window_rtol": 0.05, "crops_paired": 0.9}
+ASSET_LOSS_RTOL_LIMITS = (1e-3, 5e-2)
+# the card's Pillow has no libraqm, so ocrjax's recipes run under Pillow's
+# basic layout, the one the card's renderer takes
+ASSET_LAYOUT = "basic"
+ASSET_SCRIPTS = ("train_rec_assets", "train_det_assets", "train_cls_assets",
+                 "soup_weights", "eval_multiseed")
+
+
+@contextlib.contextmanager
+def pil_layout(name: str):
+    """Pillow's text layout forced to `name` ("basic" or "raqm") in both
+    packages' renderers (each caches its fonts, so both caches empty)."""
+    from PIL import ImageFont
+    from ocrjax.train import synth as jsynth
+    from ocrjax_torch.train import synth
+    import chip_smoke
+    engine = {"basic": ImageFont.Layout.BASIC,
+              "raqm": ImageFont.Layout.RAQM}[name]
+    orig = ImageFont.truetype
+
+    def truetype(font=None, size=10, index=0, encoding="",
+                 layout_engine=None):
+        return orig(font, size, index, encoding, layout_engine=engine)
+    for m in (jsynth, synth):
+        m._font_cache.clear()
+    try:
+        with chip_smoke.patched(ImageFont, "truetype", truetype):
+            yield
+    finally:
+        for m in (jsynth, synth):
+            m._font_cache.clear()
+
+
+@contextlib.contextmanager
+def no_jax_disk_cache():
+    """The reference scripts point jax's persistent compilation cache into
+    the repository; XLA:CPU's loader can reject its own entries
+    (conftest.py), so those two settings are dropped while they run."""
+    import jax
+    import chip_smoke
+    orig = jax.config.update
+
+    def update(name, value):
+        if name not in ("jax_compilation_cache_dir",
+                        "jax_persistent_cache_min_compile_time_secs"):
+            orig(name, value)
+    with chip_smoke.patched(jax.config, "update", update):
+        yield
+
+
+def jax_modules() -> dict:
+    """ocrjax's modules as chip_smoke.run_script takes them."""
+    from ocrjax import api, weights
+    from ocrjax.train import (checkpoint, cls_trainer, det_crops, det_gt,
+                              det_trainer, rec_trainer, synth)
+    return {"api": api, "weights": weights, "checkpoint": checkpoint,
+            "rec_trainer": rec_trainer, "det_trainer": det_trainer,
+            "cls_trainer": cls_trainer, "synth": synth, "det_gt": det_gt,
+            "det_crops": det_crops,
+            "fp32_config": lambda: asset_config(compute_dtype="float32"),
+            "to_numpy": np.asarray}
+
+
+def reference_script(name: str):
+    """The reference's scripts/<name>.py, loaded from its file."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"reference_{name}", os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_scripts() -> dict:
+    """name -> main of the reference's asset scripts."""
+    return {name: reference_script(name).main for name in ASSET_SCRIPTS}
+
+
+def jax_e2e_pages(n_pages: int, seed: int, max_rotation: float = 0.0,
+                  degrade_level: float = 0.0, supersample: int = 1,
+                  projective: float = 0.0, curl: float = 0.0) -> tuple:
+    """(the pages ocrjax's evaluate_e2e draws (640 px) in its order, their
+    ground-truth texts)."""
+    from ocrjax.train import synth
+    charset, rng, pages, gts = _charset(), np.random.RandomState(seed), [], []
+    for _ in range(n_pages):
+        page, quads, texts = synth.render_page(
+            rng, charset, size=(640, 640), max_rotation=max_rotation,
+            supersample=supersample)
+        if projective > 0 or curl > 0:
+            page, quads = synth.warp_page_projective(
+                page, quads, rng, severity=projective, curl=curl)
+        if degrade_level > 0:
+            page = synth.degrade_image(page, rng, level=degrade_level)
+        pages.append(page)
+        gts.append(list(texts))
+    return pages, gts
+
+
+def jax_traffic_pages16() -> np.ndarray:
+    """The bench traffic's first 16 pages (render_bench_traffic's)."""
+    from ocrjax.train import synth
+    charset, cfg = _charset(), asset_config()
+    rng = np.random.RandomState(0)
+    for _ in range(cfg.line_bucket_for_count(256)):
+        synth.random_text(rng, charset, 4, 12)     # the strips' texts
+    return np.stack([synth.render_page(rng, charset,
+                                       size=(cfg.det_max_side,) * 2)[0]
+                     for _ in range(16)])
+
+
+def jax_render_digests() -> dict:
+    """chip_smoke.render_digests of ocrjax's renderers, by layout."""
+    import chip_smoke
+    from ocrjax.train import synth
+    out = {}
+    for layout in ("raqm", "basic"):
+        with pil_layout(layout):
+            out[layout] = chip_smoke.render_digests(
+                synth, jax_e2e_pages, jax_traffic_pages16)
+    return out
+
+
+def jax_cls_init() -> dict:
+    """train_cls's flax init at seed 0 (the script's first width, 64),
+    flat."""
+    import jax
+    import jax.numpy as jnp
+    from ocrjax.models.cls import create_cls
+    from ocrjax_torch.weights import flatten
+    cfg = asset_config(compute_dtype="float32")
+    v = create_cls(cfg).init(
+        jax.random.PRNGKey(0),
+        jnp.zeros((1, cfg.rec_height, 64, 1), jnp.float32),
+        jnp.full((1,), 64, jnp.int32))
+    return flatten(jax.tree.map(np.asarray, dict(v)))
+
+
+def _renderer() -> dict:
+    import cv2
+    from PIL import __version__, features
+    return {"pillow": __version__, "freetype": features.version("freetype2"),
+            "raqm": features.version("raqm"), "layout": ASSET_LAYOUT,
+            "opencv": cv2.__version__}
+
+
+def save_crops(path: str, sets: dict) -> None:
+    """Crop sets (crop_key -> DetCropSet) as chip_smoke.load_crops reads
+    them."""
+    arrays = {}
+    for key, c in sets.items():
+        arrays[f"{key}__images"] = np.asarray(c.images)
+        arrays[f"{key}__widths"] = np.asarray(c.widths)
+        arrays[f"{key}__texts"] = np.asarray("\n".join(c.texts))
+    np.savez_compressed(path, **arrays)
+
+
+def jax_assets_expected(work: str, cls_init: dict, log=print) -> dict:
+    """Phase 18's reference: ocrjax's scripts on the cut recipes (float32,
+    CPU, the basic layout), the render digests under both layouts, and the
+    port's own CPU run of the same recipes, which sets bar (ii). Writes
+    ocrjax's det crop sets to DET_CROPS, which the port's runs train on."""
+    import time
+    import chip_smoke as CS
+    out = {"renderer": _renderer(), "cuts": CS.ASSET_CUTS,
+           "resume_at": CS.ASSET_RESUME_AT, "soup_alpha": CS.SOUP_ALPHA,
+           "argv": {"rec": CS.cut_argv(CS.REC_RECIPE, "rec"),
+                    "det": CS.cut_argv(CS.DET_RECIPE, "det"),
+                    "cls": CS.cut_argv([], "cls"),
+                    "eval": ["--degrade", *CS.cut_argv([], "eval")]}}
+    t0 = time.time()
+    out["digests"] = jax_render_digests()
+    log(f"digests ({time.time() - t0:.0f} s)")
+    t0 = time.time()
+    with pil_layout(ASSET_LAYOUT), no_jax_disk_cache():
+        out["jax"] = CS.run_asset_recipes(jax_modules(), jax_scripts(),
+                                          os.path.join(work, "jax"))
+    out["jax_cpu_s"] = time.time() - t0
+    save_crops(DET_CROPS, out["jax"].pop("crop_sets"))
+    log(f"ocrjax's recipes ({out['jax_cpu_s']:.0f} s)")
+    t0 = time.time()
+    with pil_layout(ASSET_LAYOUT):
+        port = CS.run_asset_recipes(CS.port_modules(), CS.port_scripts(),
+                                    os.path.join(work, "port"),
+                                    extra=("--cpu",), cls_init=cls_init,
+                                    crops=CS.load_crops())
+    out["port_cpu_s"] = time.time() - t0
+    log(f"the port's recipes ({out['port_cpu_s']:.0f} s)")
+    gaps = {}
+    for kind in ("rec", "det", "cls"):
+        got, want = port[kind], out["jax"][kind]
+        if got["render_digests"] != want["render_digests"]:
+            raise AssertionError(f"{kind}: the port's renders differ from "
+                                 "ocrjax's on the CPU")
+        gaps[kind] = max(abs(a - b) / abs(b) for (_, a), (_, b) in
+                         zip(got["losses"], want["losses"]))
+    lo, hi = ASSET_LOSS_RTOL_LIMITS
+    out["port_cpu"] = {
+        "loss_gap": gaps,
+        **{kind: {"losses": port[kind]["losses"],
+                  "result": port[kind]["result"],
+                  "crops": port[kind]["crops"]}
+           for kind in ("rec", "det", "cls")},
+        "eval_shipped": port["eval_shipped"], "eval_soup": port["eval_soup"]}
+    out["bars"] = dict(ASSET_BARS, loss_rtol={
+        kind: min(max(3 * g, lo), hi) for kind, g in gaps.items()})
+    return out
+
+
+def write_assets_fixture() -> None:
+    """expected_jax_assets_fp32.json and cls_init_jax.npz."""
+    import tempfile
+    cls_init = jax_cls_init()
+    np.savez_compressed(CLS_INIT, **cls_init)
+    with tempfile.TemporaryDirectory(prefix="ocrjax_assets_") as work:
+        _write_json(ASSETS_EXPECTED, jax_assets_expected(
+            work, cls_init, log=lambda m: print(m, flush=True)))
+
+
 def _write_json(path, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=1)
@@ -1148,6 +1377,62 @@ def test_curl_fixture_inputs_are_current():
         rot for _, _, rot in CURL_STRIP_ROWS]
 
 
+
+def test_assets_fixture_is_current():
+    """expected_jax_assets_fp32.json (chip_smoke.py phase 18): its cuts,
+    recipes and bars are chip_smoke's and follow from its own numbers;
+    ocrjax's renderers and the port's still draw the digests it holds,
+    under both layouts; cls_init_jax.npz is train_cls's flax init and
+    det_crops_jax.npz holds every crop set the recipes make."""
+    import chip_smoke as CS
+    from ocrjax.train import synth as jsynth
+    with open(ASSETS_EXPECTED) as f:
+        want = json.load(f)
+    assert want["cuts"] == json.loads(json.dumps(CS.ASSET_CUTS))
+    assert (want["resume_at"], want["soup_alpha"]) == (CS.ASSET_RESUME_AT,
+                                                       CS.SOUP_ALPHA)
+    assert want["argv"] == {"rec": CS.cut_argv(CS.REC_RECIPE, "rec"),
+                            "det": CS.cut_argv(CS.DET_RECIPE, "det"),
+                            "cls": CS.cut_argv([], "cls"),
+                            "eval": ["--degrade", *CS.cut_argv([], "eval")]}
+    assert want["renderer"]["layout"] == ASSET_LAYOUT
+    lo, hi = ASSET_LOSS_RTOL_LIMITS
+    gaps = want["port_cpu"]["loss_gap"]
+    assert want["bars"] == dict(ASSET_BARS, loss_rtol={
+        k: min(max(3 * g, lo), hi) for k, g in gaps.items()})
+    steps = {k: CS.ASSET_CUTS[k]["--steps"][1] for k in ("rec", "det", "cls")}
+    for kind, n in steps.items():
+        run = want["jax"][kind]
+        assert [s for s, _ in run["losses"]] == list(range(1, n + 1))
+        assert len(run["digests"]) == n and run["render_digests"]
+        assert all(np.isfinite(v) for _, v in run["losses"])
+        assert len(want["port_cpu"][kind]["losses"]) == n
+    assert set(want["jax"]["rec"]["result"]) == {"exact_match"}
+    assert set(want["jax"]["det"]["result"]) == {"recall", "precision"}
+    assert set(want["jax"]["cls"]["result"]) == {"accuracy"}
+    tiers = [t[0] for t in CS.EVAL_TIERS]
+    for name in ("eval_shipped", "eval_soup"):
+        assert list(want["jax"][name]) == tiers
+    # on the CPU the port reads the shipped assets as ocrjax does
+    assert want["port_cpu"]["eval_shipped"] == want["jax"]["eval_shipped"]
+    # the digests: ocrjax's renderers and the port's, both layouts
+    assert set(want["digests"]) == {"raqm", "basic"}
+    assert jax_render_digests() == want["digests"]
+    for layout, digests in want["digests"].items():
+        with pil_layout(layout):
+            assert CS.port_render_digests() == digests
+    assert want["digests"]["raqm"]["fonts"] == CS.digest(np.frombuffer(
+        b"".join(open(f, "rb").read() for f in jsynth.FONTS), np.uint8))
+    init = dict(np.load(CLS_INIT))
+    fresh = jax_cls_init()
+    assert set(init) == set(fresh)
+    for k in init:
+        np.testing.assert_array_equal(init[k], fresh[k])
+    keys = {k for kind in ("rec", "cls")
+            for k in want["port_cpu"][kind]["crops"]}
+    assert set(CS.load_crops()) == keys
+
+
 if __name__ == "__main__":
     sys.path.insert(0, ROOT)
     written = []
@@ -1159,6 +1444,9 @@ if __name__ == "__main__":
         write_optin_fixture()
     elif "--write-bench-train" in sys.argv:
         write_bench_train_fixture()
+    elif "--write-assets" in sys.argv:
+        write_assets_fixture()
+        written = [CLS_INIT, DET_CROPS, ASSETS_EXPECTED]
     elif "--write-logs" in sys.argv:
         lanes = dict(np.load(LANES))
         _write_json(LOGS_EXPECTED, jax_lane_logs(

@@ -48,7 +48,13 @@ def test_no_jax_or_ocrjax_imports():
             "ocrjax_torch/utils/logging.py",
             "ocrjax_torch/postprocess/host_boxes.py",
             "ocrjax_torch/postprocess/native_boxes.py",
-            "ocrjax_torch/bench_main.py"} <= names
+            "ocrjax_torch/bench_main.py",
+            "ocrjax_torch/scripts/__init__.py",
+            "ocrjax_torch/scripts/train_rec_assets.py",
+            "ocrjax_torch/scripts/train_det_assets.py",
+            "ocrjax_torch/scripts/train_cls_assets.py",
+            "ocrjax_torch/scripts/soup_weights.py",
+            "ocrjax_torch/scripts/eval_multiseed.py"} <= names
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad
@@ -65,7 +71,12 @@ def test_api_import_pulls_in_no_jax():
             "ocrjax_torch.train.e2e_eval, ocrjax_torch.train.checkpoint, "
             "ocrjax_torch.parallel.mesh, ocrjax_torch.parallel.dryrun, "
             "ocrjax_torch.utils.logging, ocrjax_torch.postprocess.host_boxes, "
-            "ocrjax_torch.postprocess.native_boxes, ocrjax_torch.bench_main; "
+            "ocrjax_torch.postprocess.native_boxes, ocrjax_torch.bench_main, "
+            "ocrjax_torch.scripts.train_rec_assets, "
+            "ocrjax_torch.scripts.train_det_assets, "
+            "ocrjax_torch.scripts.train_cls_assets, "
+            "ocrjax_torch.scripts.soup_weights, "
+            "ocrjax_torch.scripts.eval_multiseed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
