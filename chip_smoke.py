@@ -159,19 +159,43 @@ Phases, in order; any failure exits non-zero:
      share and operations a step over steps 3-7 (torch.profiler), ms a
      step and render ms a step over steps 9 to N-1 (host clock). The whole
      record goes to ocrjax_torch/_build/assets_phase.json.
+  19. the reference's hardware gates: every test of tests/test_tpu.py as a
+     gate function below (gate_<name>, GATE_LINES), on
+     OcrEngine.from_pretrained() on the card in bfloat16, the shipped
+     dtype, each bar copied as it stands: K2 against its plain version,
+     recognize, extract_boxes, e2e (8 pages), K1 against its plain
+     version, rotated, try-flip (set after construction), inverted and
+     degraded pages, dense C5, the tiled batch against the serial calls
+     (host clock, the card synchronized before each reading), tiled e2e,
+     short strips and projective pages. Each gate's numbers print beside
+     its bar; a gate that misses saves the pages it drew to
+     ocrjax_torch/_build/gate_pages_<name>.npz and fails the phase.
+  20. the reference's evaluation and bench scripts through the port's
+     (ocrjax_torch.scripts: eval_quality_breakdown, eval_xheight,
+     eval_beam, bench_int8_det, bench_try_flip, eval_tiled_quality,
+     probe_dense, calibrate_unclip) in bfloat16 through their main(), with
+     pages or seeds cut (SCRIPT_CUTS); each printout parsed, its keys
+     those of the reference's printout (expected_jax_scripts_fp32.json)
+     and every number finite; bench_int8_det's int8 convolutions all on
+     db_int8's _int_mm route, its bitmap agreement at least
+     INT8_AGREE_MIN. Phases 19 and 20's record goes to
+     ocrjax_torch/_build/gates_scripts.json.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
-7-12, 13, 14, 16 and 18; conv_fused: 4); the counts are set to 0 just
-before such a phase and read just after, in all and by path; the lane
-phases 2, 3, 5-8, 10, 11, 12's page calls, 13's page sections, 14, 16's
-fused call and 18 must label on the shared path only, phase 9, 12's
-tiled call, 13's C5 sections and 16's tiled call on the cluster path
-only. The last lines
+7-12, 13, 14, 16, 18, 19 and 20; conv_fused: 4 and 19's conv gate); the
+counts are set to 0 just before such a phase, or gate or script, and read
+just after, in all and by path; the lane phases 2, 3, 5-8, 10, 11, 12's
+page calls, 13's page sections, 14, 16's fused call, 18, 19's page gates
+and 20's page scripts must label on the shared path only, phase 9, 12's
+tiled call, 13's C5 sections, 16's tiled call, 19's C5 gates and its
+256x256 bitmaps (extract_boxes, ccl) and 20's eval_tiled_quality and
+probe_dense on the cluster path only. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
 
+import ast
 import collections
 import concurrent.futures
 import contextlib
@@ -2826,6 +2850,672 @@ def phase_assets(counters) -> tuple:
     return launches, record
 
 
+# ---------------------------------------------------------------------------
+# 19. the reference's hardware gates (tests/test_tpu.py)
+# ---------------------------------------------------------------------------
+
+# name -> the line of tests/test_tpu.py whose test the gate function copies;
+# each function takes the device and the compute dtype, and the gate's
+# sizes as keywords whose defaults are the reference's (the CPU tests call
+# them at smaller cuts), and returns the gate's numbers beside its bar
+GATE_LINES = {"conv": 12, "recognize": 28, "extract_boxes": 37, "e2e": 47,
+              "ccl": 63, "rotated": 77, "try_flip": 113, "inverted": 145,
+              "degraded": 169, "dense_c5": 185, "tiled_batch": 221,
+              "tiled_e2e": 262, "short_strips": 304, "projective": 350}
+# the gates that draw no page
+GATE_UNITS = ("conv", "recognize", "extract_boxes", "ccl")
+GATE_BAR_BATCH_TIME = 1.10
+_gate_engines = {}
+
+
+def gate_engine(device: str, dtype: str):
+    """OcrEngine.from_pretrained() with the shipped config in `dtype`, one
+    per device and dtype (a gate that changes its config builds its own)."""
+    from ocrjax_torch.api import OcrEngine, asset_config
+    key = (device, dtype)
+    if key not in _gate_engines:
+        _gate_engines[key] = OcrEngine.from_pretrained(
+            device=device, config=asset_config(compute_dtype=dtype))
+    return _gate_engines[key]
+
+
+def _gate(name: str, numbers: dict, bar: dict, ok: bool,
+          pages: dict = None) -> dict:
+    return {"gate": name, "test": f"tests/test_tpu.py:{GATE_LINES[name]}",
+            "numbers": numbers, "bar": bar, "ok": bool(ok),
+            "pages": pages or {}}
+
+
+def _rgb(page):
+    import numpy as np
+    return np.repeat(page[..., None], 3, axis=2)
+
+
+def multiset_hits(texts, preds) -> int:
+    """Lines of `preds` that take one ground-truth line of `texts` each by
+    equal text (the gates' `rem.remove` loops)."""
+    rem, hits = list(texts), 0
+    for p in preds:
+        if p in rem:
+            rem.remove(p)
+            hits += 1
+    return hits
+
+
+def draw_pages(synth, charset, seed: int, n: int, **kw) -> list:
+    """n pages of synth.render_page from RandomState(seed), as a gate draws
+    them: [(page, quads, texts)]."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    return [synth.render_page(rng, charset, **kw) for _ in range(n)]
+
+
+def draw_short_strips(synth, charset, n_pages: int = 8, size: int = 640
+                      ) -> dict:
+    """The short-strip gate's pages: glyph count L -> [(page, quads,
+    texts)] from RandomState(42 + L)."""
+    return {L: draw_pages(synth, charset, 42 + L, n_pages, size=(size, size),
+                          n_lines=(5, 8), max_len=L, min_len=L)
+            for L in (1, 2)}
+
+
+def draw_dense(synth, charset, size=(3072, 2048), n_lines: int = 200):
+    import numpy as np
+    return synth.render_page_dense(np.random.RandomState(5), charset,
+                                   size=tuple(size), n_lines=n_lines)
+
+
+def _e2e_gate(name, device, dtype, n_pages, seed, bar, **kw) -> dict:
+    from ocrjax_torch.train import e2e_eval
+    eng = gate_engine(device, dtype)
+    pages, gts = e2e_eval.render_e2e(eng.charset, n_pages=n_pages, seed=seed,
+                                     **kw)
+    m = e2e_eval.score_e2e(eng, pages, gts)
+    ok = (m["det_recall"] >= bar["det_recall"]
+          and m["line_exact_match"] >= bar["line_exact_match"]
+          and m.get("char_error_rate", 0) <= bar.get("char_error_rate", 1))
+    return _gate(name, dict(m), bar, ok, {"pages": pages})
+
+
+def gate_conv(device: str = "cuda", dtype: str = "bfloat16") -> dict:
+    """K2 on (2, 32, 64, 128 -> 128) float32 x against its plain version on
+    bf16 x (the compute dtype plays no part)."""
+    import numpy as np
+    import torch
+    from ocrjax_torch.ops import conv_fused
+    rng = np.random.RandomState(0)
+    B, H, W, Cin, Cout = 2, 32, 64, 128, 128
+    x = rng.randn(B, H, W, Cin).astype(np.float32)
+    w = rng.randn(3, 3, Cin, Cout).astype(np.float32) * 0.05
+    scale = rng.rand(Cout).astype(np.float32) + 0.5
+    bias = rng.randn(Cout).astype(np.float32) * 0.1
+    x, w, scale, bias = (torch.from_numpy(a).to(device)
+                         for a in (x, w, scale, bias))
+    got = conv_fused.conv3x3_bn_relu(x, w, scale, bias).float()
+    want = conv_fused.conv_bn_relu_torch(x.bfloat16(), w, scale,
+                                         bias).float()
+    atol, rtol = 0.25, 0.1
+    d = (got - want).abs()
+    over = float((d - (atol + rtol * want.abs())).max())
+    return _gate("conv", {"max_abs_err": float(d.max()),
+                          "worst_over_tolerance": over},
+                 {"atol": atol, "rtol": rtol}, over <= 0.0)
+
+
+def gate_recognize(device: str = "cuda", dtype: str = "bfloat16") -> dict:
+    from ocrjax_torch.train import synth
+    text = gate_engine(device, dtype).recognize(
+        synth.render_line("TPU 123", height=32)).text
+    return _gate("recognize", {"text": text}, {"text": "TPU 123"},
+                 text == "TPU 123")
+
+
+def gate_extract_boxes(device: str = "cuda", dtype: str = "bfloat16"
+                       ) -> dict:
+    import numpy as np
+    import torch
+    from ocrjax_torch.postprocess import db_boxes
+    prob = np.zeros((256, 256), np.float32)
+    prob[30:50, 20:200] = 0.9
+    out = db_boxes.extract_boxes(torch.from_numpy(prob)[None].to(device),
+                                 max_candidates=16)
+    n = int(out["valid"].sum())
+    return _gate("extract_boxes", {"valid": n}, {"valid": 1}, n == 1)
+
+
+def gate_ccl(device: str = "cuda", dtype: str = "bfloat16") -> dict:
+    """The wrapper (K1 on the card) against the plain version."""
+    import numpy as np
+    import torch
+    from ocrjax_torch.ops import cc_label
+    bm = np.zeros((256, 256), bool)
+    bm[10:30, 10:100] = True
+    bm[50:60, 5:250] = True
+    bm[100:140, 100:140] = True
+    t = torch.from_numpy(bm)[None].to(device)
+    got = cc_label.label_components(t, n_iters=4).cpu()
+    want = cc_label.label_components_torch(t, n_iters=4).cpu()
+    differ = int((got != want).sum())
+    return _gate("ccl", {"labels_differing": differ,
+                         "components": int(torch.unique(want[want < cc_label.BIG]).numel())},
+                 {"labels_differing": 0}, differ == 0)
+
+
+def gate_e2e(device="cuda", dtype="bfloat16", n_pages: int = 8) -> dict:
+    return _e2e_gate("e2e", device, dtype, n_pages, 123,
+                     {"det_recall": 0.95, "line_exact_match": 0.92,
+                      "char_error_rate": 0.02})
+
+
+def gate_rotated(device="cuda", dtype="bfloat16", n_pages: int = 4) -> dict:
+    from ocrjax_torch.scripts.probe_dense import match
+    from ocrjax_torch.train import synth
+    eng = gate_engine(device, dtype)
+    drawn = draw_pages(synth, eng.charset, 9, n_pages, max_rotation=10)
+    tot = found = exact = 0
+    for page, quads, texts in drawn:
+        f, e = match(quads, texts, eng.ocr(_rgb(page)).lines)
+        tot, found, exact = tot + len(texts), found + f, exact + e
+    bar = {"found": 0.95, "exact": 0.92}
+    return _gate("rotated", {"lines": tot, "found": found / tot,
+                             "exact": exact / tot}, bar,
+                 found / tot >= bar["found"] and exact / tot >= bar["exact"],
+                 {"pages": [d[0] for d in drawn]})
+
+
+def gate_try_flip(device="cuda", dtype="bfloat16", n_pages: int = 3) -> dict:
+    """rec_try_flip set after construction, as the reference does."""
+    from ocrjax_torch.api import OcrEngine, asset_config
+    from ocrjax_torch.train import synth
+    eng = OcrEngine.from_pretrained(device=device,
+                                    config=asset_config(compute_dtype=dtype))
+    eng.config = eng.config.replace(rec_try_flip=True)
+    drawn = draw_pages(synth, eng.charset, 11, n_pages)
+    tot = up = dn = 0
+    for page, _, texts in drawn:
+        img = _rgb(page)
+        up += multiset_hits(texts, [l.text for l in eng.ocr(img).lines])
+        dn += multiset_hits(texts, [l.text for l in
+                                    eng.ocr(img[::-1, ::-1]).lines])
+        tot += len(texts)
+    bar = {"upright": 0.90, "upside_down": 0.85}
+    return _gate("try_flip", {"lines": tot, "upright": up / tot,
+                              "upside_down": dn / tot}, bar,
+                 up / tot >= bar["upright"] and dn / tot >= bar["upside_down"],
+                 {"pages": [d[0] for d in drawn]})
+
+
+def gate_inverted(device="cuda", dtype="bfloat16", n_pages: int = 3) -> dict:
+    from ocrjax_torch.train import synth
+    eng = gate_engine(device, dtype)
+    drawn = draw_pages(synth, eng.charset, 17, n_pages)
+    tot = exact = 0
+    for page, _, texts in drawn:
+        res = eng.ocr(_rgb(255 - page))
+        exact += multiset_hits(texts, [l.text for l in res.lines])
+        tot += len(texts)
+    bar = {"exact": 0.90}
+    return _gate("inverted", {"lines": tot, "exact": exact / tot}, bar,
+                 exact / tot >= bar["exact"],
+                 {"pages": [255 - d[0] for d in drawn]})
+
+
+def gate_degraded(device="cuda", dtype="bfloat16", n_pages: int = 4) -> dict:
+    return _e2e_gate("degraded", device, dtype, n_pages, 321,
+                     {"det_recall": 0.95, "line_exact_match": 0.88},
+                     degrade_level=0.5)
+
+
+def gate_dense_c5(device="cuda", dtype="bfloat16", size=(3072, 2048),
+                  n_lines: int = 200) -> dict:
+    from ocrjax_torch.scripts.probe_dense import match
+    from ocrjax_torch.train import synth
+    eng = gate_engine(device, dtype)
+    page, quads, texts = draw_dense(synth, eng.charset, size, n_lines)
+    res = eng.ocr_tiled(_rgb(page))
+    found, exact = match(quads, texts, res.lines)
+    n = len(texts)
+    bar = {"rendered": 150, "truncated": False, "found": 0.95,
+           "exact": 0.90}
+    return _gate("dense_c5", {"rendered": n, "truncated": bool(res.truncated),
+                              "found": found / n, "exact": exact / n}, bar,
+                 n >= 150 and not res.truncated and found / n >= 0.95
+                 and exact / n >= 0.90, {"pages": [page]})
+
+
+def gate_tiled_batch(device="cuda", dtype="bfloat16", n_pages: int = 4,
+                     size: int = 2048) -> dict:
+    """ocr_tiled_batch against the serial ocr_tiled calls, both warmed;
+    the host clock with the card synchronized before each reading."""
+    from ocrjax_torch.scripts import clock
+    from ocrjax_torch.train import synth
+    eng = gate_engine(device, dtype)
+    drawn = draw_pages(synth, eng.charset, 21, n_pages, size=(size, size),
+                       n_lines=(10, 14), max_len=12)
+    imgs = [_rgb(d[0]) for d in drawn]
+    eng.ocr_tiled(imgs[0])
+    eng.ocr_tiled_batch(imgs)
+    t0 = clock(device)
+    serial = [eng.ocr_tiled(im) for im in imgs]
+    t_serial = clock(device) - t0
+    t0 = clock(device)
+    batch = eng.ocr_tiled_batch(imgs)
+    t_batch = clock(device) - t0
+    same = all([l.text for l in rs.lines] == [l.text for l in rb.lines]
+               for rs, rb in zip(serial, batch))
+    bar = {"same_strings": True, "batch_over_serial": GATE_BAR_BATCH_TIME}
+    return _gate("tiled_batch", {
+        "same_strings": same, "lines": [len(r.lines) for r in batch],
+        "strings": [[l.text for l in r.lines] for r in batch],
+        "serial_s": t_serial, "batch_s": t_batch,
+        "batch_over_serial": t_batch / t_serial}, bar,
+        same and t_batch <= t_serial * GATE_BAR_BATCH_TIME,
+        {"pages": [d[0] for d in drawn]})
+
+
+def gate_tiled_e2e(device="cuda", dtype="bfloat16", seeds=(42, 43, 44, 45),
+                   size: int = 2048) -> dict:
+    from ocrjax_torch.train import synth
+    eng = gate_engine(device, dtype)
+    per_seed, lines, truth, pages = [], [], [], []
+    for seed in seeds:
+        (page, _, texts), = draw_pages(synth, eng.charset, seed, 1,
+                                       size=(size, size), n_lines=(12, 16),
+                                       max_len=12)
+        preds = [l.text for l in eng.ocr_tiled(_rgb(page)).lines]
+        per_seed.append(multiset_hits(texts, preds) / len(texts))
+        lines.append(len(preds))
+        truth.append(len(texts))
+        pages.append(page)
+    mean = float(sum(per_seed) / len(per_seed))
+    bar = {"lines_each": "truth - 1", "mean_exact": 0.88}
+    return _gate("tiled_e2e", {"per_seed_exact": per_seed, "mean_exact": mean,
+                               "lines": lines, "truth": truth}, bar,
+                 all(n >= t - 1 for n, t in zip(lines, truth))
+                 and mean >= 0.88, {"pages": pages})
+
+
+def gate_short_strips(device="cuda", dtype="bfloat16", n_pages: int = 8
+                      ) -> dict:
+    import numpy as np
+    from ocrjax_torch.scripts.eval_quality_breakdown import _align_subs
+    from ocrjax_torch.scripts.eval_xheight import case_flip
+    from ocrjax_torch.train import synth
+    from ocrjax_torch.train.e2e_eval import _levenshtein
+    eng = gate_engine(device, dtype)
+    flat_frac = eng.config.rec_flat_band_frac
+    stats, case_misses, pages = {}, 0, []
+    for L, drawn in draw_short_strips(synth, eng.charset, n_pages).items():
+        total = exact = 0
+        for page, _, texts in drawn:
+            preds = [ln.text for ln in eng.ocr(_rgb(page)).lines]
+            total += len(texts)
+            for t in texts:
+                if t in preds:
+                    preds.remove(t)
+                    exact += 1
+                elif preds:
+                    d = [_levenshtein(t, p) for p in preds]
+                    p = preds.pop(int(np.argmin(d)))
+                    case_misses += any(
+                        "∅" not in s and case_flip(*s)
+                        for s in _align_subs(t, p))
+            pages.append(page)
+        stats[L] = (exact, total)
+    bar = {"rec_flat_band_frac": "> 0", "len1": 0.62, "len2": 0.85,
+           "case_misses": 4}
+    len1, len2 = (stats[L][0] / stats[L][1] for L in (1, 2))
+    return _gate("short_strips", {
+        "rec_flat_band_frac": flat_frac, "len1": len1, "len2": len2,
+        "counts": {str(L): list(v) for L, v in stats.items()},
+        "case_misses": int(case_misses)}, bar,
+        flat_frac > 0 and len1 >= 0.62 and len2 >= 0.85
+        and case_misses <= 4, {"pages": pages})
+
+
+def gate_projective(device="cuda", dtype="bfloat16", n_pages: int = 8
+                    ) -> dict:
+    return _e2e_gate("projective", device, dtype, n_pages, 555,
+                     {"det_recall": 0.95, "line_exact_match": 0.90},
+                     projective=0.3, curl=0.3)
+
+
+GATE_FNS = {name: globals()[f"gate_{name}"] for name in GATE_LINES}
+# the K1 path of each gate's grids: the lanes' 240x240 grids (the 960-side
+# canvas pooled 4x) on the shared path; the C5 tile grids and the 256x256
+# bitmaps of the extract_boxes and ccl gates (65,536 pixels, one past the
+# shared path's limit) on the cluster path; None: the gate labels nothing
+GATE_CCL_PATH = {"conv": None, "recognize": None, "extract_boxes": "cluster",
+                 "ccl": "cluster", "dense_c5": "cluster",
+                 "tiled_batch": "cluster", "tiled_e2e": "cluster"}
+
+
+def save_gate_pages(name: str, pages: dict) -> str:
+    """A missed gate's pages as an npz in the ignored ocrjax_torch/_build/;
+    returns the path."""
+    import numpy as np
+    arrays = {f"{k}_{i}": np.asarray(p) for k, ps in pages.items()
+              for i, p in enumerate(ps)}
+    path = os.path.join(PKG, "_build", f"gate_pages_{name}.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def phase_gates(counters) -> tuple:
+    """Every gate of tests/test_tpu.py on OcrEngine.from_pretrained() on the
+    card in bfloat16, each with its numbers beside its bar; returns (K1's
+    launches by path per gate, K2's launches, the record)."""
+    from ocrjax_torch.ops.cc_label import label_components_cuda
+    from ocrjax_torch.ops.conv_fused import conv3x3_bn_relu_cuda
+    ccl, record, missed = {}, {}, []
+    conv_launches = 0
+    t_phase = time.perf_counter()
+    for name, fn in GATE_FNS.items():
+        reset(counters)
+        t0 = time.perf_counter()
+        r = fn("cuda", "bfloat16")
+        secs = time.perf_counter() - t0
+        by_path = dict(label_components_cuda.launches_by_path)
+        path = GATE_CCL_PATH.get(name, "shared")
+        if path is None:
+            if any(by_path.values()):
+                fail(f"gate {name} labels nothing, yet cc_label launched "
+                     f"{by_path}")
+        else:
+            ccl[f"19 {name}"] = only_path(f"19 {name}", path, by_path)
+        if name == "conv":
+            conv_launches = read(counters, "19 conv",
+                                 ["conv3x3_bn_relu_cuda"])[
+                                     "conv3x3_bn_relu_cuda"]
+            if conv3x3_bn_relu_cuda.launches_by_path["wgmma"] != \
+                    conv_launches:
+                fail(f"gate conv: K2 took "
+                     f"{conv3x3_bn_relu_cuda.launches_by_path}, not wgmma")
+        shown = {k: v for k, v in r["numbers"].items() if k != "strings"}
+        print(f"  gate {name} ({r['test']}): {json.dumps(shown)}; bar "
+              f"{json.dumps(r['bar'])}: {'pass' if r['ok'] else 'MISSED'} "
+              f"({secs:.1f} s; K1 {by_path})")
+        if not r["ok"]:
+            missed.append(name)
+            print(f"    its pages: {save_gate_pages(name, r['pages'])}")
+        record[name] = {"numbers": r["numbers"], "bar": r["bar"],
+                        "ok": r["ok"], "s": secs}
+    print(f"  phase 19: {time.perf_counter() - t_phase:.1f} s")
+    if missed:
+        fail(f"gates missed their bars: {missed}")
+    return ccl, conv_launches, record
+
+
+# ---------------------------------------------------------------------------
+# 20. the reference's evaluation and bench scripts through the port's
+# ---------------------------------------------------------------------------
+
+SCRIPTS = ("eval_quality_breakdown", "eval_xheight", "eval_beam",
+           "bench_int8_det", "bench_try_flip", "eval_tiled_quality",
+           "probe_dense", "calibrate_unclip")
+# what each run cuts, pages or seeds only: flag -> (the reference's
+# default, this run's)
+SCRIPT_CUTS = {
+    "eval_quality_breakdown": {"--pages-per-font": (6, 2)},
+    "eval_xheight": {"--pages": (12, 3)},
+    "eval_beam": {"--seeds": (4, 1)},
+    "bench_int8_det": {},
+    "bench_try_flip": {"--pages": (48, 16)},
+    "eval_tiled_quality": {"--seeds": (8, 4)},
+    "probe_dense": {"--pages": (4, 2)},
+    "calibrate_unclip": {"--pages": (6, 3)},
+}
+# the fields of each parsed output that are times (held to being there
+# and finite, not to a value)
+SCRIPT_TIMINGS = {
+    "eval_beam": ("throughput.crops_per_sec_greedy",
+                  "throughput.crops_per_sec_beam", "throughput.beam_cost_x"),
+    "bench_int8_det": ("float_ms", "float_pages_per_s", "int8_ms",
+                       "int8_pages_per_s", "speedup", "verdict"),
+    "bench_try_flip": ("flip_off.pages_per_sec", "flip_off.windows",
+                       "flip_on.pages_per_sec", "flip_on.windows",
+                       "summary.overhead_frac", "summary.pair_ratios",
+                       "summary.default_on_ok"),
+    "probe_dense": ("warm_s", "result.pages_per_sec",
+                    "result.lines_per_sec", "result.batch_s"),
+}
+INT8_AGREE_MIN = 0.9
+
+
+def script_argv(name: str) -> list:
+    return [a for flag, (_, v) in SCRIPT_CUTS[name].items()
+            for a in (flag, str(v))]
+
+
+def _lines_after(text: str, header: str) -> list:
+    """The lines of `text` after the line `header` up to the next blank
+    line."""
+    lines = text.splitlines()
+    if header not in lines:
+        return []
+    out = []
+    for line in lines[lines.index(header) + 1:]:
+        if not line.strip():
+            break
+        out.append(line)
+    return out
+
+
+def _json_lines(text: str) -> list:
+    """(prefix, object) of each line that ends in a JSON object."""
+    out = []
+    for line in text.splitlines():
+        i = line.find("{")
+        if i >= 0 and line.rstrip().endswith("}"):
+            try:
+                out.append((line[:i].strip(), json.loads(line[i:])))
+            except ValueError:
+                pass
+    return out
+
+
+def _subs(lines) -> list:
+    """[gt, pred, count] of the substitution histogram lines."""
+    import re
+    out = []
+    for line in lines:
+        m = re.match(r"^  (.+?)\s*→ (.+?)\s+×(\d+)$", line)
+        if m:
+            out.append([ast.literal_eval(m.group(1)),
+                        ast.literal_eval(m.group(2)), int(m.group(3))])
+    return out
+
+
+def parse_script_output(name: str, text: str) -> dict:
+    """The numbers a script printed, by what they are: the same parse for
+    the reference's printout and the port's."""
+    import re
+    if name == "eval_quality_breakdown":
+        fonts = {}
+        for line in _lines_after(text, "== per-font line-exact =="):
+            m = re.match(r"^  (\S+)\s+(\d+)/(\d+) = ([\d.]+)$", line)
+            fonts[m.group(1)] = [int(m.group(2)), int(m.group(3)),
+                                 float(m.group(4))]
+        misses = [list(m.groups()) for m in re.finditer(
+            r"^  \[(.+?)\] (.+) → (.+)$", text, re.M)]
+        return {"per_font": fonts, "all": fonts.pop("ALL", None),
+                "substitutions": _subs(_lines_after(
+                    text, "== top substitutions (gt→pred, ∅=ins/del) ==")),
+                "misses": misses}
+    if name == "eval_xheight":
+        per_len, total = {}, None
+        for line in _lines_after(text, "== line-exact per glyph count =="):
+            m = re.match(r"^  len (\d+): (\d+)/(\d+) = ([\d.]+)\s+"
+                         r"case-flip misses: (\d+) \(([\d.]+)\)$", line)
+            if m:
+                per_len[m.group(1)] = [int(m.group(2)), int(m.group(3)),
+                                       float(m.group(4)), int(m.group(5)),
+                                       float(m.group(6))]
+            m = re.match(r"^  ALL: (\d+)/(\d+) = ([\d.]+)\s+case-flip (\d+)$",
+                         line)
+            if m:
+                total = [int(m.group(1)), int(m.group(2)),
+                         float(m.group(3)), int(m.group(4))]
+        frac = re.search(r"^rec_flat_band_frac: (\S+)$", text, re.M)
+        return {"rec_flat_band_frac": float(frac.group(1)),
+                "per_len": per_len, "all": total,
+                "case_flip_subs": _subs(_lines_after(
+                    text, "== case-flip substitutions =="))}
+    if name == "eval_beam":
+        objs = _json_lines(text)
+        return {"throughput": objs[0][1],
+                "tiers": {k: v for k, v in objs[1:]}}
+    if name == "bench_int8_det":
+        out = {}
+        for line in text.splitlines():
+            m = re.match(r"^(float \S+|int8)\s*: ([\d.]+) ms / \d+ pages "
+                         r"\((\d+) pages/s det-forward\)$", line)
+            if m:
+                key = m.group(1).split()[0]
+                out[f"{key}_ms"] = float(m.group(2))
+                out[f"{key}_pages_per_s"] = float(m.group(3))
+        m = re.search(r"^bitmap agreement @ det_thresh: ([\d.]+)$", text,
+                      re.M)
+        out["agreement"] = float(m.group(1))
+        m = re.search(r"^mean \|prob diff\|: ([\d.]+)  max: ([\d.]+)$",
+                      text, re.M)
+        out["mean_abs_diff"] = float(m.group(1))
+        out["max_abs_diff"] = float(m.group(2))
+        m = re.search(r"^speedup: ([\d.]+)x → (\S+)", text, re.M)
+        out["speedup"] = float(m.group(1))
+        out["verdict"] = m.group(2)
+        return out
+    if name == "bench_try_flip":
+        objs = [o for _, o in _json_lines(text)]
+        return {"flip_off": objs[0], "flip_on": objs[1], "summary": objs[2]}
+    if name == "eval_tiled_quality":
+        return {"result": _json_lines(text)[-1][1],
+                "misses": [[int(m.group(1)), ast.literal_eval(m.group(2))]
+                           for m in re.finditer(
+                               r"^  miss seed=(\d+) gt=(.+)$", text, re.M)]}
+    if name == "probe_dense":
+        pages = [{"gt": int(a), "det": int(b), "found": int(c),
+                  "exact": int(d), "truncated": e == "True"}
+                 for a, b, c, d, e in re.findall(
+                     r"^page: gt=(\d+) det=(\d+) found=(\d+) exact=(\d+) "
+                     r"truncated=(\w+)$", text, re.M)]
+        warm = re.search(r"^warm batch: ([\d.]+)s, (\d+) lines, "
+                         r"truncated=(\w+)$", text, re.M)
+        return {"rendered": [int(v) for v in re.findall(
+                    r"^rendered (\d+) lines$", text, re.M)],
+                "warm_s": float(warm.group(1)),
+                "warm_lines": int(warm.group(2)),
+                "warm_truncated": warm.group(3) == "True",
+                "pages": pages, "result": _json_lines(text)[-1][1]}
+    if name == "calibrate_unclip":
+        return {"ratios": {k.split("=")[1].rstrip(":"): v
+                           for k, v in _json_lines(text)},
+                "best": float(re.search(r"^best ratio: (\S+)$", text,
+                                        re.M).group(1))}
+    raise KeyError(name)
+
+
+def drop_timings(name: str, parsed: dict) -> dict:
+    """parsed without the fields that are times."""
+    out = json.loads(json.dumps(parsed))
+    for path in SCRIPT_TIMINGS.get(name, ()):
+        *head, leaf = path.split(".")
+        d = out
+        for k in head:
+            d = d[k]
+        del d[leaf]
+    return out
+
+
+def key_shape(x):
+    """The nested dicts' keys of a parsed output (lists are leaves)."""
+    if isinstance(x, dict):
+        return {k: key_shape(v) for k, v in x.items()}
+    return None
+
+
+def all_finite(x) -> bool:
+    import math
+    if isinstance(x, dict):
+        return all(all_finite(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(all_finite(v) for v in x)
+    if isinstance(x, float):
+        return math.isfinite(x)
+    return True
+
+
+def run_port_script(name: str, argv: list) -> tuple:
+    """The port's script `name` through its main(argv); (its printout,
+    the parse of it)."""
+    import importlib
+    import io
+    main = importlib.import_module(f"ocrjax_torch.scripts.{name}").main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    text = buf.getvalue()
+    return text, parse_script_output(name, text)
+
+
+def phase_scripts(counters) -> tuple:
+    """The eight scripts through their main() on the card in bfloat16 at
+    SCRIPT_CUTS; each output's keys as the reference's printout's
+    (expected_jax_scripts_fp32.json) and every number finite;
+    bench_int8_det through db_int8's _int_mm route with its bitmap
+    agreement at least INT8_AGREE_MIN. Returns (K1's launches by path per
+    script, the record)."""
+    from ocrjax_torch.models import db_int8
+    from ocrjax_torch.ops.cc_label import label_components_cuda
+    want = load_json("expected_jax_scripts_fp32.json")
+    ccl, record = {}, {}
+    t_phase = time.perf_counter()
+    for name in SCRIPTS:
+        routes = collections.Counter()
+
+        def counted(fn, key):
+            def wrap(*a, **k):
+                routes[key] += 1
+                return fn(*a, **k)
+            return wrap
+        reset(counters)
+        t0 = time.perf_counter()
+        with patched(db_int8, "int8_conv_int_mm",
+                     counted(db_int8.int8_conv_int_mm, "_int_mm")), \
+                patched(db_int8, "int8_conv_plain",
+                        counted(db_int8.int8_conv_plain, "plain")):
+            text, got = run_port_script(name, script_argv(name))
+        secs = time.perf_counter() - t0
+        by_path = dict(label_components_cuda.launches_by_path)
+        print(f"  -- {name} {' '.join(script_argv(name))} ({secs:.1f} s; "
+              f"K1 {by_path})")
+        print("\n".join("    " + line for line in text.splitlines()))
+        if key_shape(got) != key_shape(want[name]["parsed"]):
+            fail(f"{name}: its output's keys {key_shape(got)} are not the "
+                 f"reference's {key_shape(want[name]['parsed'])}")
+        if not all_finite(got):
+            fail(f"{name}: a number of its output is not finite: {got}")
+        if name == "bench_int8_det":
+            if not routes["_int_mm"] or routes["plain"]:
+                fail(f"bench_int8_det: the int8 convolutions took {routes}, "
+                     f"not only _int_mm")
+            if not got["agreement"] >= INT8_AGREE_MIN:
+                fail(f"bench_int8_det: bitmap agreement {got['agreement']} "
+                     f"under {INT8_AGREE_MIN}")
+            if any(by_path.values()):
+                fail(f"bench_int8_det labels nothing, yet cc_label launched "
+                     f"{by_path}")
+        else:
+            path = ("cluster" if name in ("eval_tiled_quality", "probe_dense")
+                    else "shared")
+            ccl[f"20 {name}"] = only_path(f"20 {name}", path, by_path)
+        record[name] = {"argv": script_argv(name), "s": secs,
+                        "parsed": got, "int8_routes": dict(routes)}
+    print(f"  phase 20: {time.perf_counter() - t_phase:.1f} s")
+    return ccl, record
+
+
 def main() -> int:
     # cuBLAS's deterministic mode (phase 15) needs this before it starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2900,6 +3590,17 @@ def main() -> int:
     print("== 18. assets: the reference's recipes through the port's scripts")
     assets, _ = phase_assets(counters)
     ccl_phases.update({f"18 {k}": v for k, v in assets.items()})
+    t19 = time.perf_counter()
+    print("== 19. the reference's hardware gates (tests/test_tpu.py), "
+          "bfloat16")
+    gates_ccl, conv19, gates = phase_gates(counters)
+    ccl_phases.update(gates_ccl)
+    print("== 20. the reference's evaluation and bench scripts, bfloat16")
+    scripts_ccl, scripts = phase_scripts(counters)
+    ccl_phases.update(scripts_ccl)
+    print(f"  phases 19-20: {time.perf_counter() - t19:.1f} s")
+    with open(os.path.join(PKG, "_build", "gates_scripts.json"), "w") as f:
+        json.dump({"gates": gates, "scripts": scripts}, f, indent=1)
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],
@@ -2907,6 +3608,9 @@ def main() -> int:
         "worst_box_px": optin32["worst_box_px"], "cli_wall_ms": cli_ms}))
     by_path = {p: sum(v[p] for v in ccl_phases.values())
                for p in label_components_cuda.launches_by_path}
+    conv["launches_by_phase"] = {"4": conv["launches"], "19 conv": conv19}
+    conv["launches"] += conv19
+    conv["launches_by_path"]["wgmma"] += conv19
     kernels = [{**ccl, **c5, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
                 "launches_by_phase": ccl_phases}, conv]

@@ -131,16 +131,17 @@ class OcrEngine:
         self.config = config or OcrConfig()
         self.charset = charset or default_charset()
         cfg = self.config
-        det_arch = dict(channels=(64, 128, 256, 512), blocks_per_stage=2,
-                        head_stride=cfg.det_head_stride)
         self.rec_model = _build(
             create_crnn(cfg, self.charset.num_classes),
             rec_weights and W.crnn_state_dict(rec_weights)[0], seed,
             self.device)
-        self.det_model = _build(
-            create_db(cfg),
-            det_weights and W.db_state_dict(det_weights, det_arch)[0],
-            seed + 1, self.device)
+        # the detectors are built from the config in force when they are
+        # first needed (det_model, tile_det_model); their weights stay here
+        self._det_weights = {"det": det_weights,
+                             "tile_det": tile_det_weights}
+        self._det_seeds = {"det": seed + 1, "tile_det": seed + 3}
+        self._det_built = {"det": None, "tile_det": None}
+        self._tile_det_cfg = None    # the config tile_det_model was built for
         self.cls_model = _build(
             create_cls(cfg), cls_weights and W.cls_state_dict(cls_weights)[0],
             seed + 2, self.device)
@@ -150,15 +151,50 @@ class OcrEngine:
         # antisymmetry certificate: single-pass margins (cls_single_pass)
         self.cls_antisym = False
         self.tile_det_arch = tile_det_arch
-        self.tile_det_model = None if tile_det_weights is None else _build(
-            create_db(cfg, tile_det_arch),
-            W.db_state_dict(tile_det_weights, tile_det_arch)[0],
-            seed + 3, self.device)
         self._fused_cache = {}
         self._det = None   # api_det.DetState, built by the staged lanes
         self._tile_fwd = None   # tiling.TileForward, built by the tiled lanes
         # parallel.mesh.shard_tiled_serving: the tile lanes' dp mesh
         self.tile_mesh = None
+
+    def build_detector(self, kind: str) -> torch.nn.Module:
+        """A new DB of `kind` ("det", the flagship, or "tile_det") from the
+        config in force, holding the weights of the one built before it
+        (they stay on the engine across rebuilds, as ocrjax's det_variables
+        do), else the loaded ones, else random ones from the seed."""
+        prev = self._det_built[kind]
+        model = create_db(self.config,
+                          self.tile_det_arch if kind == "tile_det" else None)
+        flat = (W.model_variables(prev) if prev is not None
+                else self._det_weights[kind])
+        if flat is None:
+            W.init_random_(model, self._det_seeds[kind])
+        else:
+            W.load_model_variables(model, flat)
+        self._det_built[kind] = model.to(self.device).eval()
+        return self._det_built[kind]
+
+    @property
+    def det_model(self) -> torch.nn.Module:
+        """The flagship detector of the staged and fused lanes. It is built
+        from the config at the detector's first use and kept from then on
+        (api_det.DetState, as ocrjax's _DetState); resetting `_det` builds
+        it again from the config then in force. Callers may load weights
+        into it (weights.load_model_variables)."""
+        from ocrjax_torch.api_det import det_state
+        return det_state(self).model
+
+    @property
+    def tile_det_model(self) -> Optional[torch.nn.Module]:
+        """The dedicated tile detector (None when no tile asset was
+        loaded), built from the config in force: a config change builds it
+        again, as ocrjax's tile forward is rebuilt with its config."""
+        if self._det_weights["tile_det"] is None:
+            return None
+        if self._tile_det_cfg != self.config:
+            self.build_detector("tile_det")
+            self._tile_det_cfg = self.config
+        return self._det_built["tile_det"]
 
     def warn_untrained_cls(self) -> None:
         """Warns once when rec_try_flip runs on a random orientation

@@ -49,10 +49,13 @@ def upload(engine, a: np.ndarray) -> torch.Tensor:
 
 class DetState:
     """The staged detector of an engine: DB forward and box extraction over
-    a batch of uploaded canvases, on the engine's device."""
+    a batch of uploaded canvases, on the engine's device. The flagship DB
+    is built here, from the config of the detector's first use, and kept
+    (ocrjax's _DetState)."""
 
     def __init__(self, engine):
         self.engine = engine
+        self.model = engine.build_detector("det")
 
     @torch.inference_mode()
     def forward(self, gray_up: torch.Tensor
@@ -61,12 +64,12 @@ class DetState:
         uint8 luma, as preprocess.pack_for_upload makes them. Returns
         (prob (B, S', S'), candidates {'boxes' (B, C, 4, 2) canvas px,
         'scores' (B, C), 'valid' (B, C)}) as device tensors."""
-        eng, cfg = self.engine, self.engine.config
+        cfg = self.engine.config
         with stage("det_forward"):
             gray_u8 = preprocess.unpack_on_device(gray_up, cfg)
             x = preprocess.det_normalize_gray(gray_u8, cfg.det_mean,
                                               cfg.det_std)
-            prob = db_int8.apply_prob(eng.det_model, x, cfg.det_int8)
+            prob = db_int8.apply_prob(self.model, x, cfg.det_int8)
         with stage("extract_boxes"):
             cand = db_boxes.extract_boxes(
                 prob, thresh=float(cfg.det_thresh),

@@ -1,13 +1,16 @@
-"""Drivers of the shipped assets' recipes, ports of the reference's
-scripts/ with the same flags: train_rec_assets, train_det_assets,
-train_cls_assets, soup_weights and eval_multiseed, each run as
-`python -m ocrjax_torch.scripts.<name>`. They run on the card unless given
---cpu."""
+"""The reference's scripts/ with the same flags, each run as
+`python -m ocrjax_torch.scripts.<name>`: the drivers of the shipped
+assets' recipes (train_rec_assets, train_det_assets, train_cls_assets,
+soup_weights, eval_multiseed) and the evaluation and bench scripts
+(eval_quality_breakdown, eval_xheight, eval_beam, bench_int8_det,
+bench_try_flip, eval_tiled_quality, probe_dense, calibrate_unclip). They
+run on the card unless given --cpu."""
 
 from __future__ import annotations
 
 import os
 import socket
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -19,6 +22,31 @@ def describe(device: str) -> str:
     if device == "cuda":
         return f"cuda ({torch.cuda.get_device_name(0)})"
     return "cpu"
+
+
+def clock(device: str) -> float:
+    """The host clock once the card has finished the work queued on it."""
+    if device == "cuda":
+        import torch
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def device_ms(fn, device: str) -> float:
+    """Milliseconds of one call of fn: CUDA events around it on the card,
+    the host clock on the CPU."""
+    import torch
+    if device != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def mesh_from_flag(spec: str, device: str):

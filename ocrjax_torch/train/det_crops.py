@@ -39,7 +39,8 @@ def generate_det_crops(engine, n_pages: int = 256, seed: int = 17,
     would be truncated). max_rotation: per-line rotation range (degrees)
     of the rendered pages, which the homography warp rectifies."""
     from ocrjax_torch.api_det import det_state, fetch_det, upload
-    from ocrjax_torch.ops.warp import expand_quads, warp_quads_multi_refined
+    from ocrjax_torch.ops.warp import (expand_quads_host,
+                                       warp_quads_multi_refined)
 
     cfg = engine.config
     S = page_size or cfg.det_max_side
@@ -81,9 +82,13 @@ def generate_det_crops(engine, n_pages: int = 256, seed: int = 17,
         if not qs:
             continue
 
-        b = upload(engine, np.asarray([S - 1.0, S - 1.0], np.float32))
-        qe = expand_quads(upload(engine, np.asarray(qs, np.float32)),
-                          cfg.rec_crop_margin, cfg.rec_crop_margin, bounds=b)
+        # expanded on the host as ocrjax does (the margins in float32, the
+        # sum and the clip in float64), float32 at the upload
+        bounds = np.asarray([S - 1.0, S - 1.0], np.float32)
+        qe = upload(engine, expand_quads_host(
+            np.asarray(qs, np.float32), cfg.rec_crop_margin,
+            cfg.rec_crop_margin, bounds=bounds).astype(np.float32))
+        b = upload(engine, bounds)
         # normalized on the host in float32, as ocrjax does here
         g = (grays.astype(np.float32) / 255.0 - cfg.rec_mean) / cfg.rec_std
         with torch.inference_mode():

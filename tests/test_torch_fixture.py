@@ -1164,6 +1164,320 @@ def write_fixture() -> None:
     write_bench_train_fixture()
 
 
+# ---------------------------------------------------------------------------
+# the reference's hardware gates (chip_smoke.py phase 19) and its
+# evaluation and bench scripts (phase 20), at the CPU tests' cuts
+# ---------------------------------------------------------------------------
+
+GATES_EXPECTED = os.path.join(TESTDATA, "expected_jax_gates_fp32.json")
+SCRIPTS_EXPECTED = os.path.join(TESTDATA, "expected_jax_scripts_fp32.json")
+# each gate's cut on the CPU: keywords of chip_smoke's gate function (the
+# card runs the reference's sizes): one page or one seed, the dense page
+# 1536x1024 with 80 lines, the tiled batch 2 pages
+GATE_CUTS = {"e2e": {"n_pages": 1}, "rotated": {"n_pages": 1},
+             "try_flip": {"n_pages": 1}, "inverted": {"n_pages": 1},
+             "degraded": {"n_pages": 1},
+             "dense_c5": {"size": [1536, 1024], "n_lines": 80},
+             "tiled_batch": {"n_pages": 2}, "tiled_e2e": {"seeds": [42]},
+             "short_strips": {"n_pages": 1}, "projective": {"n_pages": 1}}
+# the gates' fields that are times
+GATE_TIMINGS = {"tiled_batch": ("serial_s", "batch_s", "batch_over_serial")}
+# each script's tiny cut on the CPU: its flags (calibrate_unclip's 3 pages
+# are the fewest on which the four ratios read differently), the config
+# both packages' from_pretrained build (float32, and for bench_int8_det a
+# 128-pixel canvas), and evaluate_e2e's pages for eval_beam (its accuracy
+# loop draws 4 a call)
+SCRIPT_CUTS = {
+    "eval_quality_breakdown": {"argv": ["--pages-per-font", "2"]},
+    "eval_xheight": {"argv": ["--pages", "1"]},
+    "eval_beam": {"argv": ["--seeds", "1", "--repeats", "1"],
+                  "e2e_pages": 1},
+    "bench_int8_det": {"argv": [], "config": {"det_max_side": 128}},
+    "bench_try_flip": {"argv": ["--pages", "2", "--repeats", "1"]},
+    "eval_tiled_quality": {"argv": ["--seeds", "1"]},
+    "probe_dense": {"argv": ["--pages", "1", "--lines", "40", "--height",
+                             "1024", "--width", "1024"]},
+    "calibrate_unclip": {"argv": ["--pages", "3"]},
+}
+
+
+def gate_digests(synth, charset, e2e_pages) -> dict:
+    """chip_smoke.digest of the pages each page gate draws at GATE_CUTS,
+    from `synth` and `charset` (either package's) and `e2e_pages`
+    (evaluate_e2e's drawing: (n_pages, seed, **kw) -> (pages, texts))."""
+    import chip_smoke as CS
+    c = GATE_CUTS
+    d = {}
+    for name, seed, kw in (("e2e", 123, {}), ("degraded", 321,
+                                              {"degrade_level": 0.5}),
+                           ("projective", 555, {"projective": 0.3,
+                                                "curl": 0.3})):
+        d[name] = CS.digest(np.stack(e2e_pages(c[name]["n_pages"], seed,
+                                               **kw)[0]))
+    for name, seed, kw in (("rotated", 9, {"max_rotation": 10}),
+                           ("try_flip", 11, {}), ("inverted", 17, {}),
+                           ("tiled_batch", 21, {"size": (2048, 2048),
+                                                "n_lines": (10, 14),
+                                                "max_len": 12})):
+        d[name] = CS.digest(np.stack([p for p, _, _ in CS.draw_pages(
+            synth, charset, seed, c[name]["n_pages"], **kw)]))
+    d["tiled_e2e"] = CS.digest(np.stack([CS.draw_pages(
+        synth, charset, s, 1, size=(2048, 2048), n_lines=(12, 16),
+        max_len=12)[0][0] for s in c["tiled_e2e"]["seeds"]]))
+    d["dense_c5"] = CS.digest(CS.draw_dense(synth, charset,
+                                            **c["dense_c5"])[0])
+    d["short_strips"] = CS.digest(np.stack([
+        p for pages in CS.draw_short_strips(
+            synth, charset, **c["short_strips"]).values()
+        for p, _, _ in pages]))
+    return d
+
+
+def _jax_engine(**overrides):
+    from ocrjax.api import OcrEngine as JaxEngine
+    return JaxEngine.from_pretrained(
+        config=asset_config(compute_dtype="float32", **overrides))
+
+
+def jax_gates_expected() -> dict:
+    """ocrjax's float32 measurement of every gate of tests/test_tpu.py at
+    GATE_CUTS on the CPU: each test's body with its asserts turned into
+    the numbers they test (the Pallas kernels in interpret mode)."""
+    import jax.numpy as jnp
+    import chip_smoke as CS
+    from scripts.eval_quality_breakdown import _align_subs
+    from scripts.eval_xheight import case_flip
+    from ocrjax.ops.pallas.cc_label import label_components_pallas
+    from ocrjax.ops.pallas.conv_fused import (conv3x3_bn_relu,
+                                              conv_bn_relu_xla)
+    from ocrjax.postprocess.db_boxes import extract_boxes, label_components
+    from ocrjax.train import synth
+    from ocrjax.train.e2e_eval import _levenshtein, evaluate_e2e
+    from ocrjax_torch.scripts.probe_dense import match
+    c, out = GATE_CUTS, {}
+    eng = _jax_engine()
+    charset = eng.charset
+
+    rng = np.random.RandomState(0)
+    B, H, W, Cin, Cout = 2, 32, 64, 128, 128
+    x = jnp.asarray(rng.randn(B, H, W, Cin).astype(np.float32))
+    w = jnp.asarray(rng.randn(3, 3, Cin, Cout).astype(np.float32) * 0.05)
+    scale = jnp.asarray(rng.rand(Cout).astype(np.float32) + 0.5)
+    bias = jnp.asarray(rng.randn(Cout).astype(np.float32) * 0.1)
+    got = np.asarray(conv3x3_bn_relu(x, w, scale, bias, interpret=True,
+                                     force_pallas=True))
+    want = np.asarray(conv_bn_relu_xla(
+        x.astype(jnp.bfloat16), w, scale, bias)).astype(np.float32)
+    d = np.abs(got - want)
+    out["conv"] = {"max_abs_err": float(d.max()), "worst_over_tolerance":
+                   float((d - (0.25 + 0.1 * np.abs(want))).max())}
+
+    out["recognize"] = {"text": eng.recognize(
+        synth.render_line("TPU 123", height=32)).text}
+
+    prob = np.zeros((256, 256), np.float32)
+    prob[30:50, 20:200] = 0.9
+    out["extract_boxes"] = {"valid": int(np.asarray(extract_boxes(
+        jnp.asarray(prob), max_candidates=16)["valid"]).sum())}
+
+    bm = np.zeros((256, 256), bool)
+    bm[10:30, 10:100] = True
+    bm[50:60, 5:250] = True
+    bm[100:140, 100:140] = True
+    got = np.asarray(label_components_pallas(jnp.asarray(bm), n_iters=4,
+                                             interpret=True))
+    want = np.asarray(label_components(jnp.asarray(bm), n_iters=4))
+    out["ccl"] = {"labels_differing": int((got != want).sum()),
+                  "components": int(np.unique(want[want < 2 ** 30]).size)}
+
+    for name, seed, kw in (("e2e", 123, {}), ("degraded", 321,
+                                              {"degrade_level": 0.5}),
+                           ("projective", 555, {"projective": 0.3,
+                                                "curl": 0.3})):
+        out[name] = dict(evaluate_e2e(eng, n_pages=c[name]["n_pages"],
+                                      seed=seed, **kw))
+
+    rng = np.random.RandomState(9)
+    tot = found = exact = 0
+    for _ in range(c["rotated"]["n_pages"]):
+        page, quads, texts = synth.render_page(rng, charset, max_rotation=10)
+        res = eng.ocr(np.repeat(page[..., None], 3, axis=2))
+        tot += len(texts)
+        f, e = match(quads, texts, res.lines)
+        found, exact = found + f, exact + e
+    out["rotated"] = {"lines": tot, "found": found / tot,
+                      "exact": exact / tot}
+
+    flip = _jax_engine()
+    flip.config = flip.config.replace(rec_try_flip=True)
+    rng = np.random.RandomState(11)
+    tot = up = dn = 0
+    for _ in range(c["try_flip"]["n_pages"]):
+        page, quads, texts = synth.render_page(rng, charset)
+        img = np.repeat(page[..., None], 3, axis=2)
+        up += CS.multiset_hits(texts, [l.text for l in flip.ocr(img).lines])
+        dn += CS.multiset_hits(texts, [l.text for l in
+                                       flip.ocr(img[::-1, ::-1]).lines])
+        tot += len(texts)
+    out["try_flip"] = {"lines": tot, "upright": up / tot,
+                       "upside_down": dn / tot}
+
+    rng = np.random.RandomState(17)
+    tot = exact = 0
+    for _ in range(c["inverted"]["n_pages"]):
+        page, quads, texts = synth.render_page(rng, charset)
+        res = eng.ocr(np.repeat((255 - page)[..., None], 3, axis=2))
+        tot += len(texts)
+        exact += CS.multiset_hits(texts, [l.text for l in res.lines])
+    out["inverted"] = {"lines": tot, "exact": exact / tot}
+
+    rng = np.random.RandomState(5)
+    page, quads, texts = synth.render_page_dense(
+        rng, charset, size=tuple(c["dense_c5"]["size"]),
+        n_lines=c["dense_c5"]["n_lines"])
+    res = eng.ocr_tiled(np.repeat(page[..., None], 3, axis=2))
+    found, exact = match(quads, texts, res.lines)
+    out["dense_c5"] = {"rendered": len(texts),
+                       "truncated": bool(res.truncated),
+                       "found": found / len(texts),
+                       "exact": exact / len(texts)}
+
+    rng = np.random.RandomState(21)
+    imgs = []
+    for _ in range(c["tiled_batch"]["n_pages"]):
+        page, _, texts = synth.render_page(
+            rng, charset, size=(2048, 2048), n_lines=(10, 14), max_len=12)
+        imgs.append(np.repeat(page[..., None], 3, axis=2))
+    eng.ocr_tiled(imgs[0])
+    eng.ocr_tiled_batch(imgs)
+    serial = [eng.ocr_tiled(im) for im in imgs]
+    batch = eng.ocr_tiled_batch(imgs)
+    out["tiled_batch"] = {
+        "same_strings": all([l.text for l in rs.lines] ==
+                            [l.text for l in rb.lines]
+                            for rs, rb in zip(serial, batch)),
+        "lines": [len(r.lines) for r in batch],
+        "strings": [[l.text for l in r.lines] for r in batch]}
+
+    per_seed, lines, truth = [], [], []
+    for seed in c["tiled_e2e"]["seeds"]:
+        rng = np.random.RandomState(seed)
+        page, quads, texts = synth.render_page(
+            rng, charset, size=(2048, 2048), n_lines=(12, 16), max_len=12)
+        preds = [l.text for l in eng.ocr_tiled(
+            np.repeat(page[..., None], 3, axis=2)).lines]
+        per_seed.append(CS.multiset_hits(texts, preds) / len(texts))
+        lines.append(len(preds))
+        truth.append(len(texts))
+    out["tiled_e2e"] = {"per_seed_exact": per_seed,
+                        "mean_exact": float(np.mean(per_seed)),
+                        "lines": lines, "truth": truth}
+
+    stats, case_misses = {}, 0
+    for L in (1, 2):
+        rng = np.random.RandomState(42 + L)
+        total = exact = 0
+        for _ in range(c["short_strips"]["n_pages"]):
+            page, _, texts = synth.render_page(
+                rng, charset, size=(640, 640), n_lines=(5, 8), max_len=L,
+                min_len=L)
+            preds = [ln.text for ln in eng.ocr(
+                np.repeat(page[..., None], 3, axis=2)).lines]
+            total += len(texts)
+            for t in texts:
+                if t in preds:
+                    preds.remove(t)
+                    exact += 1
+                elif preds:
+                    d = [_levenshtein(t, p) for p in preds]
+                    p = preds.pop(int(np.argmin(d)))
+                    case_misses += any(
+                        "∅" not in s and case_flip(*s)
+                        for s in _align_subs(t, p))
+        stats[L] = (exact, total)
+    out["short_strips"] = {
+        "rec_flat_band_frac": eng.config.rec_flat_band_frac,
+        "len1": stats[1][0] / stats[1][1], "len2": stats[2][0] / stats[2][1],
+        "counts": {str(L): list(v) for L, v in stats.items()},
+        "case_misses": int(case_misses)}
+
+    return {"cuts": GATE_CUTS, "numbers": out,
+            "digests": gate_digests(synth, charset, jax_e2e_pages)}
+
+
+@contextlib.contextmanager
+def fp32_engines(engine_cls, config_fn, **overrides):
+    """engine_cls.from_pretrained builds its engine from config_fn(
+    compute_dtype="float32", **overrides) where its caller gives no
+    config (the scripts call it bare)."""
+    import chip_smoke
+    orig = engine_cls.from_pretrained.__func__
+
+    def from_pretrained(cls, path=None, config=None, **kw):
+        return orig(cls, path, config or config_fn(
+            compute_dtype="float32", **overrides), **kw)
+    with chip_smoke.patched(engine_cls, "from_pretrained",
+                            classmethod(from_pretrained)):
+        yield
+
+
+@contextlib.contextmanager
+def e2e_pages_cut(module, n_pages):
+    """module.evaluate_e2e drawing n_pages a call (None: as called)."""
+    import chip_smoke
+    orig = module.evaluate_e2e
+
+    def evaluate_e2e(engine, **kw):
+        if n_pages is not None:
+            kw["n_pages"] = n_pages
+        return orig(engine, **kw)
+    with chip_smoke.patched(module, "evaluate_e2e", evaluate_e2e):
+        yield
+
+
+def jax_script_output(name: str) -> str:
+    """What ocrjax's scripts/<name>.py prints at SCRIPT_CUTS[name] on the
+    CPU in float32."""
+    import io
+    import chip_smoke
+    from ocrjax.api import OcrEngine as JaxEngine
+    from ocrjax.train import e2e_eval
+    cut = SCRIPT_CUTS[name]
+    sys.path.insert(0, ROOT)
+    main = reference_script(name).main
+    argv = [f"scripts/{name}.py", *cut["argv"]]
+    if name != "bench_int8_det":
+        argv.append("--cpu")
+    buf = io.StringIO()
+    with fp32_engines(JaxEngine, asset_config, **cut.get("config", {})), \
+            e2e_pages_cut(e2e_eval, cut.get("e2e_pages")), \
+            no_jax_disk_cache(), \
+            chip_smoke.patched(sys, "argv", argv), \
+            contextlib.redirect_stdout(buf):
+        main()
+    return buf.getvalue()
+
+
+def jax_scripts_expected(log=print) -> dict:
+    import chip_smoke as CS
+    out = {}
+    for name in CS.SCRIPTS:
+        text = jax_script_output(name)
+        log(text)
+        out[name] = {"cut": SCRIPT_CUTS[name], "text": text,
+                     "parsed": CS.parse_script_output(name, text)}
+    return out
+
+
+def write_gates_fixture() -> None:
+    _write_json(GATES_EXPECTED, jax_gates_expected())
+
+
+def write_scripts_fixture() -> None:
+    _write_json(SCRIPTS_EXPECTED, jax_scripts_expected(
+        log=lambda m: print(m, flush=True)))
+
+
 def test_bench_traffic_is_current():
     """bench_traffic.npz is run_bench's traffic from ocrjax.train.synth at
     the reference's sizes, and bench_lib reads it."""
@@ -1447,6 +1761,12 @@ if __name__ == "__main__":
     elif "--write-assets" in sys.argv:
         write_assets_fixture()
         written = [CLS_INIT, DET_CROPS, ASSETS_EXPECTED]
+    elif "--write-gates" in sys.argv:
+        write_gates_fixture()
+        written = [GATES_EXPECTED]
+    elif "--write-scripts" in sys.argv:
+        write_scripts_fixture()
+        written = [SCRIPTS_EXPECTED]
     elif "--write-logs" in sys.argv:
         lanes = dict(np.load(LANES))
         _write_json(LOGS_EXPECTED, jax_lane_logs(

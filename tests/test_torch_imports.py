@@ -1,5 +1,6 @@
 """Import hygiene and the device default of ocrjax_torch: no module of the
-port (its CLI included), and not chip_smoke.py, imports JAX or ocrjax;
+port (its CLI and scripts included), and not chip_smoke.py, imports JAX,
+ocrjax or the repository's reference scripts/;
 importing the API or the CLI pulls neither in; the engine refuses to run without CUDA unless asked for the
 CPU; its config has exactly ocrjax's fields and defaults."""
 
@@ -15,6 +16,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ocrjax")
+# the port's copies of the reference's scripts/ (ocrjax_torch/scripts/)
+PORT_SCRIPTS = ("train_rec_assets", "train_det_assets", "train_cls_assets",
+                "soup_weights", "eval_multiseed", "eval_quality_breakdown",
+                "eval_xheight", "eval_beam", "bench_int8_det",
+                "bench_try_flip", "eval_tiled_quality", "probe_dense",
+                "calibrate_unclip")
 
 
 def _imported_roots(path):
@@ -49,15 +56,22 @@ def test_no_jax_or_ocrjax_imports():
             "ocrjax_torch/postprocess/host_boxes.py",
             "ocrjax_torch/postprocess/native_boxes.py",
             "ocrjax_torch/bench_main.py",
-            "ocrjax_torch/scripts/__init__.py",
-            "ocrjax_torch/scripts/train_rec_assets.py",
-            "ocrjax_torch/scripts/train_det_assets.py",
-            "ocrjax_torch/scripts/train_cls_assets.py",
-            "ocrjax_torch/scripts/soup_weights.py",
-            "ocrjax_torch/scripts/eval_multiseed.py"} <= names
+            "ocrjax_torch/scripts/__init__.py"} <= names
+    assert {f"ocrjax_torch/scripts/{n}.py" for n in PORT_SCRIPTS} <= names
     bad = [(os.path.relpath(f, ROOT), m) for f in files
-           for m in _imported_roots(f) if m in FORBIDDEN]
+           for m in _imported_roots(f) if m in FORBIDDEN + ("scripts",)]
     assert not bad
+
+
+def test_port_scripts_import_no_reference_script():
+    """Every file of ocrjax_torch/scripts/ imports nothing of JAX, ocrjax
+    or the reference's scripts/: a helper it needs is copied into it."""
+    files = glob.glob(os.path.join(ROOT, "ocrjax_torch", "scripts", "*.py"))
+    assert {os.path.basename(f)[:-3] for f in files} == \
+        set(PORT_SCRIPTS) | {"__init__"}
+    for f in files:
+        roots = set(_imported_roots(f))
+        assert not roots & set(FORBIDDEN + ("scripts",)), (f, roots)
 
 
 def test_api_import_pulls_in_no_jax():
@@ -72,13 +86,10 @@ def test_api_import_pulls_in_no_jax():
             "ocrjax_torch.parallel.mesh, ocrjax_torch.parallel.dryrun, "
             "ocrjax_torch.utils.logging, ocrjax_torch.postprocess.host_boxes, "
             "ocrjax_torch.postprocess.native_boxes, ocrjax_torch.bench_main, "
-            "ocrjax_torch.scripts.train_rec_assets, "
-            "ocrjax_torch.scripts.train_det_assets, "
-            "ocrjax_torch.scripts.train_cls_assets, "
-            "ocrjax_torch.scripts.soup_weights, "
-            "ocrjax_torch.scripts.eval_multiseed; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
+            + ", ".join(f"ocrjax_torch.scripts.{n}" for n in PORT_SCRIPTS)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('scripts',)!r}]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stdout + res.stderr
