@@ -178,17 +178,25 @@ Phases, in order; any failure exits non-zero:
      those of the reference's printout (expected_jax_scripts_fp32.json)
      and every number finite; bench_int8_det's int8 convolutions all on
      db_int8's _int_mm route, its bitmap agreement at least
-     INT8_AGREE_MIN. Phases 19 and 20's record goes to
+     INT8_AGREE_MIN.
+  21. the reference's diagnostic scripts through the port's (diag_dense,
+     diag_dense_stages, diag_tile_det, diag_rec_fetch, diag_reroute) in
+     bfloat16 through their main(), with pages or repeats cut
+     (DIAG_CUTS); each printout parsed, its keys those of the reference's
+     printout (expected_jax_diag_fp32.json) and every number finite; the
+     phase within DIAG_PHASE_MAX_S. Phases 19-21's record goes to
      ocrjax_torch/_build/gates_scripts.json.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
-7-12, 13, 14, 16, 18, 19 and 20; conv_fused: 4 and 19's conv gate); the
+7-12, 13, 14, 16, 18, 19, 20 and 21; conv_fused: 4 and 19's conv gate); the
 counts are set to 0 just before such a phase, or gate or script, and read
 just after, in all and by path; the lane phases 2, 3, 5-8, 10, 11, 12's
 page calls, 13's page sections, 14, 16's fused call, 18, 19's page gates
-and 20's page scripts must label on the shared path only, phase 9, 12's
-tiled call, 13's C5 sections, 16's tiled call, 19's C5 gates and its
-256x256 bitmaps (extract_boxes, ccl) and 20's eval_tiled_quality and
-probe_dense on the cluster path only. The last lines
+and 20's page scripts and 21's diag_rec_fetch and diag_reroute must label
+on the shared path only, phase 9, 12's tiled call, 13's C5 sections, 16's
+tiled call, 19's C5 gates and its 256x256 bitmaps (extract_boxes, ccl),
+20's eval_tiled_quality and probe_dense and 21's diag_dense,
+diag_dense_stages and diag_tile_det (a 512x512 grid at every head stride)
+on the cluster path only. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
@@ -3282,10 +3290,27 @@ SCRIPT_TIMINGS = {
 }
 INT8_AGREE_MIN = 0.9
 
+# 21. the reference's diagnostic scripts; what each run cuts, pages and
+# repeats only: flag -> (the reference's default, this run's)
+DIAG_SCRIPTS = ("diag_dense", "diag_dense_stages", "diag_tile_det",
+                "diag_rec_fetch", "diag_reroute")
+DIAG_CUTS = {
+    "diag_dense": {},
+    "diag_dense_stages": {"--repeats": (2, 1)},
+    "diag_tile_det": {},
+    "diag_rec_fetch": {"--pages": (96, 32), "--repeats": (3, 1)},
+    "diag_reroute": {},
+}
+# K1's path in each: the C5 tile grids, the 960 canvases' 240^2 grids
+DIAG_CCL_PATH = {"diag_dense": "cluster", "diag_dense_stages": "cluster",
+                 "diag_tile_det": "cluster", "diag_rec_fetch": "shared",
+                 "diag_reroute": "shared"}
+DIAG_PHASE_MAX_S = 60.0
+
 
 def script_argv(name: str) -> list:
-    return [a for flag, (_, v) in SCRIPT_CUTS[name].items()
-            for a in (flag, str(v))]
+    cuts = DIAG_CUTS if name in DIAG_SCRIPTS else SCRIPT_CUTS
+    return [a for flag, (_, v) in cuts[name].items() for a in (flag, str(v))]
 
 
 def _lines_after(text: str, header: str) -> list:
@@ -3413,6 +3438,129 @@ def parse_script_output(name: str, text: str) -> dict:
                            for k, v in _json_lines(text)},
                 "best": float(re.search(r"^best ratio: (\S+)$", text,
                                         re.M).group(1))}
+    if name in DIAG_SCRIPTS:
+        return _parse_diag(name, text)
+    raise KeyError(name)
+
+
+def _literal(s: str):
+    return ast.literal_eval(s.strip())
+
+
+def _parse_diag(name: str, text: str) -> dict:
+    """parse_script_output of the diagnostic scripts. What a script prints
+    a variable number of times (runs, pages, misses, stages) parses to a
+    list, whose key_shape is a leaf, so the parse's keys do not depend on
+    the cut or on the stage names (the port's differ from ocrjax's)."""
+    import re
+
+    def num(pattern, cast=float, default=None):
+        m = re.search(pattern, text, re.M)
+        return cast(m.group(1)) if m else default
+    if name == "diag_dense":
+        found = re.search(r"^found (\d+)/(\d+) = [\d.]+   exact (\d+)/\d+",
+                          text, re.M)
+        pred = re.search(r"^pred lines: (\d+) truncated=(\w+)$", text, re.M)
+        seam = re.search(r"^  seam_dist: median (\S+), <(\d+)px: (\d+)/(\d+)$",
+                         text, re.M)
+        gt_h = re.search(r"^  miss h: median (\S+) \(all-gt median (\S+)\)$",
+                         text, re.M)
+        y_range = re.search(r"^  miss y range: (\S+)\.\.(\S+) \(page H=",
+                            text, re.M)
+        return {
+            "gt_lines": num(r"^gt lines: (\d+)$", int),
+            "pred_lines": int(pred.group(1)),
+            "truncated": pred.group(2) == "True",
+            "found": int(found.group(1)), "n": int(found.group(2)),
+            "exact": int(found.group(3)),
+            "n_misses": num(r"^-- MISSES \(no box near gt center\): (\d+)$",
+                            int),
+            "misses": [[float(a), float(b), float(c), float(d), float(e),
+                        _literal(t)] for a, b, c, d, e, t in re.findall(
+                r"^  y=\s*(\S+) x=\s*(\S+) h=\s*(\S+) w=\s*(\S+) "
+                r"seam_d=\s*(\S+) t=(.+)$", text, re.M)],
+            # printed only where there are misses: None otherwise
+            "miss_summary": {
+                "seam_median": float(seam.group(1)) if seam else None,
+                "seam_within": [int(seam.group(3)), int(seam.group(4))]
+                if seam else None,
+                "h_median": float(gt_h.group(1)) if gt_h else None,
+                "gt_h_median": float(gt_h.group(2)) if gt_h else None,
+                "w_median": num(r"^  miss w: median (\S+)$"),
+                "x_median": num(r"^  miss x: median (\S+)  \(page W="),
+                "y_range": [float(y_range.group(1)), float(y_range.group(2))]
+                if y_range else None},
+            "n_wrong": num(r"^-- WRONG TEXT \(box found\): (\d+)$", int),
+            "wrong": [[float(y), float(h), _literal(gt), _literal(pr)]
+                      for y, h, gt, pr in re.findall(
+                r"^  y=\s*(\S+) h=\s*(\S+) gt=('(?:[^'\\]|\\.)*'|"
+                r"\"(?:[^\"\\]|\\.)*\") pred=(.+)$", text, re.M)]}
+    if name == "diag_dense_stages":
+        runs = []
+        for block in re.split(r"\n(?=run \d+: )", text)[1:]:
+            head = re.match(r"^run (\d+): (\S+) ms total = (\S+) pages/s, "
+                            r"(\S+) lines/s \((\d+) lines\)$",
+                            block.splitlines()[0])
+            total = re.search(r"^  \(sum of stages\)\s+(\S+) ms  "
+                              r"\(unattributed (\S+) ms\)$", block, re.M)
+            body = block.split("\n\n")[0]
+            host, _, dev = body.partition("  device ms (CUDA events):")
+            runs.append({
+                "ms": float(head.group(2)),
+                "pages_per_sec": float(head.group(3)),
+                "lines_per_sec": float(head.group(4)),
+                "lines": int(head.group(5)),
+                "stages": [[k, float(ms), int(n)] for k, ms, n in re.findall(
+                    r"^  (\S+)\s+(\S+) ms  x(\d+)$", host, re.M)],
+                "sum_ms": float(total.group(1)),
+                "unattributed_ms": float(total.group(2)),
+                # the port's device ms per stage; ocrjax prints none
+                "device_ms": (dev.strip() if dev.strip() == "not measured"
+                              else [[k, float(ms)] for k, ms in re.findall(
+                                  r"^  (\S+)\s+(\S+) ms$", dev, re.M)])})
+        res = re.search(r"^resident det fwd \((.+) tiles/page\): (\S+) "
+                        r"ms/page$", text, re.M)
+        return {"gt_lines": [int(v) for v in re.findall(
+                    r"^page \d+: (\d+) gt lines$", text, re.M)],
+                "tile_cap": num(r"^window tile cap: (\d+)$", int),
+                "warm_s": num(r"^warm \(compile\) run: (\S+)s$"),
+                "runs": runs,
+                "resident": {"tiles": [list(t) for t in _literal(
+                    res.group(1))], "ms_per_page": float(res.group(2))}}
+    if name == "diag_tile_det":
+        return {hs: {"prob_ms": float(a), "full_ms": float(b),
+                     "boxes_ms": float(c), "tiles": int(n)}
+                for hs, a, b, c, n in re.findall(
+                    r"^head_stride=(\d+): prob\s+(\S+) ms  prob\+boxes\s+"
+                    r"(\S+) ms  \(boxes\s+(\S+) ms\)  \[(\d+) tiles\]$",
+                    text, re.M)}
+    if name == "diag_rec_fetch":
+        head = re.search(r"^pages=(\d+) pooled_lines=(\d+)$", text, re.M)
+        return {"pages": int(head.group(1)),
+                "pooled_lines": int(head.group(2)),
+                "runs": [{"dispatch_ms": float(a),
+                          "device_compute_ms": float(b),
+                          "fetch_ms": float(c), "payload_kb": float(d),
+                          "host_decode_ms": float(e), "n_chunks": int(f)}
+                         for a, b, c, d, e, f in re.findall(
+                    r"^run\d+: dispatch=(\S+)ms device_compute=(\S+)ms "
+                    r"fetch=(\S+)ms payload=(\S+)KB host_decode=(\S+)ms "
+                    r"n_chunks=(\d+)$", text, re.M)]}
+    if name == "diag_reroute":
+        head = re.search(r"^det=(\S+)  pages=(\d+)  reroutes=(\d+)$", text,
+                         re.M)
+        return {"det": head.group(1), "pages": int(head.group(2)),
+                "reroutes": int(head.group(3)),
+                "decisions": [{"page": int(i), "reroute": flag == "REROUTE",
+                               "boxes": int(b), "max_gated_tilt": float(t),
+                               "thresh": float(th),
+                               "offender_aspect": float(a),
+                               "med_tilt90": float(m)}
+                              for i, flag, b, t, th, a, m in re.findall(
+                    r"^  page\s+(\d+) (REROUTE|       ) boxes=\s*(\d+) "
+                    r"max_gated_tilt=\s*(\S+) \(thresh (\S+)\) "
+                    r"offender_aspect=\s*(\S+) med_tilt90=\s*(\S+)$",
+                    text, re.M)]}
     raise KeyError(name)
 
 
@@ -3516,6 +3664,40 @@ def phase_scripts(counters) -> tuple:
     return ccl, record
 
 
+def phase_diag(counters) -> tuple:
+    """The five diagnostic scripts through their main() on the card in
+    bfloat16 at DIAG_CUTS; each output's keys as the reference's printout's
+    (expected_jax_diag_fp32.json), every number finite, K1 on
+    DIAG_CCL_PATH's path in each, and the phase within DIAG_PHASE_MAX_S.
+    Returns (K1's launches by path per script, the record)."""
+    from ocrjax_torch.ops.cc_label import label_components_cuda
+    want = load_json("expected_jax_diag_fp32.json")
+    ccl, record = {}, {}
+    t_phase = time.perf_counter()
+    for name in DIAG_SCRIPTS:
+        reset(counters)
+        t0 = time.perf_counter()
+        text, got = run_port_script(name, script_argv(name))
+        secs = time.perf_counter() - t0
+        by_path = dict(label_components_cuda.launches_by_path)
+        print(f"  -- {name} {' '.join(script_argv(name))} ({secs:.1f} s; "
+              f"K1 {by_path})")
+        print("\n".join("    " + line for line in text.splitlines()))
+        if key_shape(got) != key_shape(want[name]["parsed"]):
+            fail(f"{name}: its output's keys {key_shape(got)} are not the "
+                 f"reference's {key_shape(want[name]['parsed'])}")
+        if not all_finite(got):
+            fail(f"{name}: a number of its output is not finite: {got}")
+        ccl[f"21 {name}"] = only_path(f"21 {name}", DIAG_CCL_PATH[name],
+                                      by_path)
+        record[name] = {"argv": script_argv(name), "s": secs, "parsed": got}
+    secs = time.perf_counter() - t_phase
+    print(f"  phase 21: {secs:.1f} s")
+    if secs > DIAG_PHASE_MAX_S:
+        fail(f"phase 21 took {secs:.1f} s, past {DIAG_PHASE_MAX_S} s")
+    return ccl, record
+
+
 def main() -> int:
     # cuBLAS's deterministic mode (phase 15) needs this before it starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3598,9 +3780,13 @@ def main() -> int:
     print("== 20. the reference's evaluation and bench scripts, bfloat16")
     scripts_ccl, scripts = phase_scripts(counters)
     ccl_phases.update(scripts_ccl)
-    print(f"  phases 19-20: {time.perf_counter() - t19:.1f} s")
+    print("== 21. the reference's diagnostic scripts, bfloat16")
+    diag_ccl, diag = phase_diag(counters)
+    ccl_phases.update(diag_ccl)
+    print(f"  phases 19-21: {time.perf_counter() - t19:.1f} s")
     with open(os.path.join(PKG, "_build", "gates_scripts.json"), "w") as f:
-        json.dump({"gates": gates, "scripts": scripts}, f, indent=1)
+        json.dump({"gates": gates, "scripts": scripts, "diag": diag}, f,
+                  indent=1)
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],

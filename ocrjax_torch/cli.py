@@ -152,21 +152,13 @@ def _make_engine(args):
     return engine
 
 
-@contextlib.contextmanager
 def _profiled(args):
-    """torch.profiler over the run when --profile DIR: its Chrome trace is
-    written to DIR."""
+    """utils.profiling.device_trace over the run when --profile DIR: its
+    Chrome trace is written to DIR."""
     if not args.profile:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU] + ([] if args.cpu
-                                     else [ProfilerActivity.CUDA])
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(args.profile, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(
-        args.profile, f"ocrjax_torch.{os.getpid()}.trace.json"))
+        return contextlib.nullcontext()
+    from ocrjax_torch.utils.profiling import device_trace
+    return device_trace(args.profile, "cpu" if args.cpu else "cuda")
 
 
 def _quad_list(quad) -> List[List[float]]:

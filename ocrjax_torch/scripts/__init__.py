@@ -1,10 +1,11 @@
 """The reference's scripts/ with the same flags, each run as
 `python -m ocrjax_torch.scripts.<name>`: the drivers of the shipped
 assets' recipes (train_rec_assets, train_det_assets, train_cls_assets,
-soup_weights, eval_multiseed) and the evaluation and bench scripts
+soup_weights, eval_multiseed), the evaluation and bench scripts
 (eval_quality_breakdown, eval_xheight, eval_beam, bench_int8_det,
-bench_try_flip, eval_tiled_quality, probe_dense, calibrate_unclip). They
-run on the card unless given --cpu."""
+bench_try_flip, eval_tiled_quality, probe_dense, calibrate_unclip) and the
+diagnostic scripts (diag_dense, diag_dense_stages, diag_tile_det,
+diag_rec_fetch, diag_reroute). They run on the card unless given --cpu."""
 
 from __future__ import annotations
 

@@ -288,3 +288,17 @@ def test_flip_strips_on_the_card_is_bit_exact(cuda):
     got = cls.flip_strips_by_width(strips.to(cuda), widths.to(cuda),
                                    flip.to(cuda), -1.0)
     assert torch.equal(got.cpu(), want)
+
+
+def test_stage_timer_records_device_time_on_the_card(cuda):
+    """On the card a stage has CUDA-event device time beside its host time
+    and its call count."""
+    from ocrjax_torch.utils import profiling as P
+    timer = P.StageTimer("cuda")
+    x = torch.randn(2048, 2048, device=cuda)
+    with timer.active():
+        for _ in range(2):
+            with P.stage("matmul"):
+                x @ x
+    assert timer.report()["matmul"] > 0
+    assert timer.host_report(calls=True)["matmul"]["calls"] == 2

@@ -1469,6 +1469,108 @@ def jax_scripts_expected(log=print) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the reference's diagnostic scripts (tests/test_torch_diag_scripts.py)
+# ---------------------------------------------------------------------------
+
+DIAG_EXPECTED = os.path.join(TESTDATA, "expected_jax_diag_fp32.json")
+# each diagnostic script's tiny cut on the CPU, the same for both packages:
+# its flags, and the size it fixes where it fixes one (diag_dense_stages'
+# page, diag_tile_det's tile side T)
+DIAG_CUTS = {
+    "diag_dense": {"argv": ["--size", "1024x1024", "--n-lines", "40"]},
+    "diag_dense_stages": {"argv": ["--pages", "1", "--n-lines", "40",
+                                   "--repeats", "1"],
+                          "page_size": [1024, 1024]},
+    "diag_tile_det": {"argv": ["--tiles", "1"], "tile": 256},
+    "diag_rec_fetch": {"argv": ["--pages", "2", "--repeats", "1"]},
+    "diag_reroute": {"argv": ["--pages", "4"]},
+}
+
+
+def reference_diag(name: str):
+    """The reference's scripts/<name>.py cut to DIAG_CUTS[name]: diag_tile_det
+    fixes its tile side in a local (T = 2048), which is cut in its source."""
+    if "tile" not in DIAG_CUTS[name]:
+        return reference_script(name)
+    import importlib.util
+    path = os.path.join(ROOT, "scripts", f"{name}.py")
+    src = open(path).read()
+    assert src.count("    T = 2048\n") == 1
+    src = src.replace("    T = 2048\n", f"    T = {DIAG_CUTS[name]['tile']}\n")
+    mod = importlib.util.module_from_spec(
+        importlib.util.spec_from_loader(f"reference_{name}", loader=None))
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return mod
+
+
+@contextlib.contextmanager
+def float32_configs(config_module):
+    """config_module.OcrConfig building float32 configs (diag_tile_det
+    builds its configs bare, without an engine)."""
+    import functools
+    import chip_smoke
+    with chip_smoke.patched(config_module, "OcrConfig", functools.partial(
+            config_module.OcrConfig, compute_dtype="float32")):
+        yield
+
+
+def jax_diag_output(name: str) -> tuple:
+    """(what ocrjax's scripts/<name>.py prints at DIAG_CUTS[name] on the CPU
+    in float32, the arrays it saves with np.savez)."""
+    import io
+    import chip_smoke
+    from ocrjax import config as jconfig
+    from ocrjax.api import OcrEngine as JaxEngine
+    from ocrjax.train import synth as jsynth
+    cut = DIAG_CUTS[name]
+    sys.path.insert(0, ROOT)
+    main = reference_diag(name).main
+    # diag_reroute has no --cpu: it sets JAX_PLATFORMS=cpu itself
+    argv = [f"scripts/{name}.py", *cut["argv"]] + \
+        ([] if name == "diag_reroute" else ["--cpu"])
+    render_dense = jsynth.render_page_dense
+
+    def dense(rng, charset, size=None, **kw):
+        return render_dense(rng, charset, size=tuple(cut["page_size"]), **kw)
+    saved = {}
+    buf = io.StringIO()
+    with contextlib.ExitStack() as st:
+        st.enter_context(fp32_engines(JaxEngine, asset_config))
+        if "tile" in cut:
+            st.enter_context(float32_configs(jconfig))
+        if "page_size" in cut:
+            st.enter_context(chip_smoke.patched(jsynth, "render_page_dense",
+                                                dense))
+        st.enter_context(no_jax_disk_cache())
+        st.enter_context(chip_smoke.patched(sys, "argv", argv))
+        st.enter_context(chip_smoke.patched(
+            np, "savez", lambda path, **arrays: saved.update(arrays)))
+        st.enter_context(contextlib.redirect_stdout(buf))
+        main()
+    return buf.getvalue(), saved
+
+
+def jax_diag_expected(log=print) -> dict:
+    import chip_smoke as CS
+    out = {}
+    for name in CS.DIAG_SCRIPTS:
+        text, saved = jax_diag_output(name)
+        log(text)
+        out[name] = {"cut": DIAG_CUTS[name], "text": text,
+                     "parsed": CS.parse_script_output(name, text)}
+        if saved:
+            out[name]["saved"] = {k: np.asarray(v).tolist()
+                                  for k, v in saved.items()}
+    return out
+
+
+def write_diag_fixture() -> None:
+    _write_json(DIAG_EXPECTED, jax_diag_expected(
+        log=lambda m: print(m, flush=True)))
+
+
 def write_gates_fixture() -> None:
     _write_json(GATES_EXPECTED, jax_gates_expected())
 
@@ -1767,6 +1869,9 @@ if __name__ == "__main__":
     elif "--write-scripts" in sys.argv:
         write_scripts_fixture()
         written = [SCRIPTS_EXPECTED]
+    elif "--write-diag" in sys.argv:
+        write_diag_fixture()
+        written = [DIAG_EXPECTED]
     elif "--write-logs" in sys.argv:
         lanes = dict(np.load(LANES))
         _write_json(LOGS_EXPECTED, jax_lane_logs(

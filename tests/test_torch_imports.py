@@ -21,7 +21,8 @@ PORT_SCRIPTS = ("train_rec_assets", "train_det_assets", "train_cls_assets",
                 "soup_weights", "eval_multiseed", "eval_quality_breakdown",
                 "eval_xheight", "eval_beam", "bench_int8_det",
                 "bench_try_flip", "eval_tiled_quality", "probe_dense",
-                "calibrate_unclip")
+                "calibrate_unclip", "diag_dense", "diag_dense_stages",
+                "diag_tile_det", "diag_rec_fetch", "diag_reroute")
 
 
 def _imported_roots(path):
