@@ -97,8 +97,9 @@ Phases, in order; any failure exits non-zero:
   13. the bench: bench_lib.run_bench on the committed traffic
      (bench_traffic.npz: 256 strips, 16 pages at 960, 3 dense pages of
      3072x2048) at the reference's sizes, bf16; its report on a line of
-     its own; every key of the reference's report but the link fields,
-     every number finite; the device ceiling at or above the fused lane's
+     its own; every key of the reference's report (the link probe and
+     each window's probe and fetch fields among them), every number
+     finite; the device ceiling at or above the fused lane's
      pages/s; the last fused window's strings read as a direct float32
      ocr_batch on the same pages on at least 0.9 of the lines; K1 on the
      shared path in the page sections and on the cluster path in the C5
@@ -117,9 +118,10 @@ Phases, in order; any failure exits non-zero:
   16. parallel (ocrjax_torch.parallel.mesh), in a child process that is
      one NCCL rank on the card (world size 1; the card machine has one
      GPU, so multi-rank results are held on the CPU by the tests): the
-     dp-sharded fused program on phase 2's 16 pages in float32 and sharded
-     tiled serving on the A4 pages, each against the unsharded run at the
-     goldens' bar; one sharded rec step at full width against the
+     dp-sharded fused program on phase 2's 16 pages in float32 (its packed
+     rows gathered by one all_gather a call) and sharded tiled serving on
+     the A4 pages, each against the unsharded run at the goldens' bar; one
+     sharded rec step at full width against the
      unsharded step at phase 15's loss and update bars; the sharded and
      the unsharded fused call's ms; then dryrun_multichip(1) on a CPU rank;
   17. the native host library: built and taken by the pack and the chunk
@@ -186,17 +188,37 @@ Phases, in order; any failure exits non-zero:
      printout (expected_jax_diag_fp32.json) and every number finite; the
      phase within DIAG_PHASE_MAX_S. Phases 19-21's record goes to
      ocrjax_torch/_build/gates_scripts.json.
+  22. transport (ops.bytepack, api_det.fetch_det): (a) phase 2's 16 pages
+     at 960 in float32 in chunks of 4 under fetch_bytes x fetch_max_tokens
+     in {True, False} x {48, 0} and under fetch_max_tokens=2,
+     det_fetch_candidates=1: results bit-identical across the settings
+     and at the goldens bar against expected_jax_fp32_960.json, the forced
+     setting refetching every chunk, the default exactly the chunks with a
+     line past 48 tokens; (b) the pooled lane, detect, ocr and ocr_tiled
+     (dense, then sparse) on phase 9's A4 pages under the same settings,
+     bit-identical, the tiled latch full after the dense page and reset
+     after the sparse one at the default prefix; (c) the bytes each fetch
+     stage copied, equal to the payload formulas; (d) a pinned
+     non-blocking copy issued behind a long device queue, still pending
+     when issued, equal to a blocking .cpu() once its event is waited on;
+     (e) phase 13's fused and bucketed windows by host stage (ms, calls,
+     MB) beside the device stages, with the link probe; (f) phase 16's
+     sharded fused program: one gathered payload, at the goldens bar of
+     the unsharded program. Every one of ocrjax's 13 host stage names
+     opens in the phase's runs and phase 13's windows.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
-7-12, 13, 14, 16, 18, 19, 20 and 21; conv_fused: 4 and 19's conv gate); the
+7-12, 13, 14, 16, 18, 19, 20, 21 and 22; conv_fused: 4 and 19's conv
+gate); the
 counts are set to 0 just before such a phase, or gate or script, and read
 just after, in all and by path; the lane phases 2, 3, 5-8, 10, 11, 12's
 page calls, 13's page sections, 14, 16's fused call, 18, 19's page gates
 and 20's page scripts and 21's diag_rec_fetch and diag_reroute must label
 on the shared path only, phase 9, 12's tiled call, 13's C5 sections, 16's
 tiled call, 19's C5 gates and its 256x256 bitmaps (extract_boxes, ccl),
-20's eval_tiled_quality and probe_dense and 21's diag_dense,
+20's eval_tiled_quality and probe_dense, 21's diag_dense,
 diag_dense_stages and diag_tile_det (a 512x512 grid at every head stride)
-on the cluster path only. The last lines
+and 22's ocr_tiled calls on the cluster path only; 22's fused, pooled,
+detect and ocr calls on the shared path only. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": ...}.
 """
@@ -1609,7 +1631,8 @@ def phase_cli(counters, pages) -> tuple:
 
 
 # the bench report's keys (ocrjax's run_bench report minus its link fields)
-BENCH_KEYS = ("device", "pages", "lines", "upload_bits", "crops_per_sec",
+BENCH_KEYS = ("device", "pages", "lines", "upload_bits", "link_probe",
+              "crops_per_sec",
               "rec_batch_ms", "pages_per_sec_device", "p50_page_latency_ms",
               "dense_pages_per_sec", "dense_lines_per_sec",
               "dense_gt_lines_per_page", "dense_det_ms_per_page",
@@ -1959,12 +1982,30 @@ def _parallel_child(rank, init_file, out_file):
         plain = F.FusedOcr(eng, K, Wb)
         sharded = M.make_sharded_fused_ocr_fn(eng, mesh, K, Wb)
         packed_d, wh_d = (torch.from_numpy(a).cuda() for a in (packed, wh))
-        want = {k: v.cpu().numpy() for k, v in
-                plain(packed_d, thr, wh_d).items()}
-        reset(counters)
-        got = {k: v.cpu().numpy() for k, v in
-               sharded(packed_d, thr, wh_d).items()}
-        out["ccl_fused"] = only_path("sharded fused", "shared")
+        T, flip = cfg.rec_max_tokens, cfg.rec_try_flip
+        want_p = plain(packed_d, thr, wh_d).cpu().numpy()
+        real_gather, gathers = dist.all_gather, []
+
+        def counted_gather(*a, **k):
+            gathers.append(1)
+            return real_gather(*a, **k)
+        with patched(dist, "all_gather", counted_gather):
+            reset(counters)
+            got_p = sharded(packed_d, thr, wh_d).cpu().numpy()
+            out["ccl_fused"] = only_path("sharded fused", "shared")
+        # one collective a call, for one packed row a page
+        out["fused_payload"] = {"gathers": len(gathers),
+                                "shape": list(got_p.shape),
+                                "dtype": str(got_p.dtype),
+                                "equal_bytes": bool(
+                                    np.array_equal(got_p, want_p))}
+        if len(gathers) != 1 or got_p.shape != want_p.shape \
+                or got_p.dtype != want_p.dtype:
+            fail(f"sharded fused: {len(gathers)} all_gathers for a "
+                 f"{got_p.dtype} {got_p.shape} payload (unsharded: "
+                 f"{want_p.dtype} {want_p.shape}); one is due")
+        want = F.unpack_fused(want_p, K, T, flip)
+        got = F.unpack_fused(got_p, K, T, flip)
         worst = max(_same_lines(f"sharded fused page {i}",
                                 _fused_lines(got, eng.charset, i),
                                 _fused_lines(want, eng.charset, i))
@@ -2030,8 +2071,8 @@ def _parallel_child(rank, init_file, out_file):
 def phase_parallel() -> dict:
     """The sharded fused program, sharded tiled serving and a sharded rec
     step in a child at world size 1 over NCCL, each against its unsharded
-    run; then dryrun_multichip(1) on a CPU rank. Returns K1's launches by
-    path in the child's fused and tiled runs."""
+    run; then dryrun_multichip(1) on a CPU rank. Returns (K1's launches by
+    path in the child's fused and tiled runs, the child's record)."""
     import tempfile
     import torch.multiprocessing as mp
     from ocrjax_torch.parallel.dryrun import dryrun_multichip
@@ -2058,10 +2099,11 @@ def phase_parallel() -> dict:
           f"{r['rec_step']['update_rel']:.2e}")
     print("  fused 16-page call, ms (CUDA events, median of 5): "
           + json.dumps({k: round(v, 3) for k, v in r["fused_ms"].items()}))
+    print(f"  sharded fused payload: {r['fused_payload']}")
     line = dryrun_multichip(1)
     if not line.startswith("dryrun_multichip OK"):
         fail(f"dryrun_multichip(1): {line}")
-    return {"16 fused": r["ccl_fused"], "16 tiled": r["ccl_tiled"]}
+    return {"16 fused": r["ccl_fused"], "16 tiled": r["ccl_tiled"]}, r
 
 
 # ---------------------------------------------------------------------------
@@ -3451,7 +3493,8 @@ def _parse_diag(name: str, text: str) -> dict:
     """parse_script_output of the diagnostic scripts. What a script prints
     a variable number of times (runs, pages, misses, stages) parses to a
     list, whose key_shape is a leaf, so the parse's keys do not depend on
-    the cut or on the stage names (the port's differ from ocrjax's)."""
+    the cut or on the stage names (the port's table holds ocrjax's host
+    stages and, nested in them, its own device stages)."""
     import re
 
     def num(pattern, cast=float, default=None):
@@ -3511,7 +3554,8 @@ def _parse_diag(name: str, text: str) -> dict:
                 "lines_per_sec": float(head.group(4)),
                 "lines": int(head.group(5)),
                 "stages": [[k, float(ms), int(n)] for k, ms, n in re.findall(
-                    r"^  (\S+)\s+(\S+) ms  x(\d+)$", host, re.M)],
+                    r"^  (\S+)\s+(\S+) ms  x(\d+)(?:  \S+ MB)?$", host,
+                    re.M)],
                 "sum_ms": float(total.group(1)),
                 "unattributed_ms": float(total.group(2)),
                 # the port's device ms per stage; ocrjax prints none
@@ -3698,9 +3742,335 @@ def phase_diag(counters) -> tuple:
     return ccl, record
 
 
+# ---------------------------------------------------------------------------
+# 22. transport: packed payloads, truncated first fetches, the async copy
+# ---------------------------------------------------------------------------
+
+# the settings of phase 22, the first the shipped one
+TRANSPORT_SETTINGS = (
+    ("bytes, 48 tokens", dict(fetch_bytes=True, fetch_max_tokens=48)),
+    ("bytes, whole", dict(fetch_bytes=True, fetch_max_tokens=0)),
+    ("float32, 48 tokens", dict(fetch_bytes=False, fetch_max_tokens=48)),
+    ("float32, whole", dict(fetch_bytes=False, fetch_max_tokens=0)),
+    ("forced refetch", dict(fetch_max_tokens=2, det_fetch_candidates=1)))
+TRANSPORT_CHUNK = 4             # pages a fused chunk in 22 (a)
+# ocrjax's host stages (its StageTimer names)
+HOST_STAGES = ("host_decode", "fused_dispatch", "fused_fetch", "det_dispatch",
+               "det_fetch", "cls_margins", "rec_dispatch", "rec_fetch_decode",
+               "warp_norm", "tile_det_dispatch", "tile_assign",
+               "tile_host_fallback", "tile_assembly")
+TRANSPORT_SLEEP_CYCLES = 200_000_000     # the device queue of 22 (d)
+
+
+def _exact_lines(res) -> list:
+    """Every number of a lane's results, as bits: strings, boxes, scores,
+    confidences, truncation."""
+    import numpy as np
+    return [(r.truncated, [(line.text, np.asarray(line.box.quad,
+                                                   np.float32).tobytes(),
+                            float(line.box.score), float(line.confidence))
+                           for line in r.lines]) for r in res]
+
+
+def _exact_boxes(boxes) -> list:
+    import numpy as np
+    return [(np.asarray(b.quad, np.float32).tobytes(), float(b.score))
+            for b in boxes]
+
+
+def _fused_row_bytes(cfg, K: int, T: int) -> int:
+    """Bytes of one fused payload row (ocrjax/fused.py:176-202 as coded):
+    K * (T + 42) as bytes, 4 * K * (T + 12) as float32, one more K
+    columns under rec_try_flip."""
+    flip = 1 if cfg.rec_try_flip else 0
+    return K * (T + 42 + flip) if cfg.fetch_bytes \
+        else 4 * K * (T + 12 + flip)
+
+
+def _long_line_page(charset):
+    """A 320 x 1100 page whose one line is longer than a 512-pixel tile
+    holds: tiled at 512 it goes to the host fallback."""
+    import numpy as np
+    from ocrjax_torch.train import synth
+    text = "".join(c for c in "Transport host fallback 0123456789 ABCDEFGH"
+                   if c == " " or c in charset.chars)
+    strip = synth.render_line(text, 48)[:, :1000]
+    page = np.full((320, 1100), 255, np.uint8)
+    page[140:140 + strip.shape[0], 50:50 + strip.shape[1]] = strip
+    return np.repeat(page[..., None], 3, axis=2)
+
+
+def phase_transport(counters, smi: str, bench: dict, parallel: dict) -> tuple:
+    """Phase 22 (see the module docstring). Returns (K1's launches by path
+    per part, the record)."""
+    from ocrjax_torch.api import OcrEngine, asset_config
+    from ocrjax_torch.ops import bytepack
+    from ocrjax_torch.utils.profiling import StageTimer
+    t_phase = time.perf_counter()
+    ccl, record, seen = {}, {"card": smi}, set()
+    pages, expected = load_fixture()
+    eng = OcrEngine.from_pretrained(config=asset_config(
+        compute_dtype="float32", fused_chunk_pages=TRANSPORT_CHUNK))
+    base = eng.config
+    K, T = base.fused_lines_per_page, base.rec_max_tokens
+    n_chunks = -(-len(pages) // TRANSPORT_CHUNK)
+    # chunks with a line past 48 tokens in the reference's float32 run
+    long_chunks = sum(
+        any(len(s) > 48 for e in expected[lo:lo + TRANSPORT_CHUNK]
+            for s in e["strings"])
+        for lo in range(0, len(pages), TRANSPORT_CHUNK))
+
+    def run(tag, fn):
+        """fn under a StageTimer with fresh refetch counts -> (its
+        result, the timer, the refetches by stage)."""
+        bytepack.refetches.clear()
+        timer = StageTimer()
+        with timer.active():
+            out = fn()
+        seen.update(timer.host)
+        return out, timer, dict(bytepack.refetches)
+
+    # (a) the fused lane under every setting
+    print(f"  (a) fused lane, {len(pages)} pages at 960, float32, chunks of "
+          f"{TRANSPORT_CHUNK} ({smi})")
+    fused_ref, rows = None, {}
+    reset(counters)
+    for tag, over in TRANSPORT_SETTINGS:
+        eng.config = base.replace(**over)
+        res, timer, again = run(tag, lambda: eng.ocr_batch(pages,
+                                                          fused=True))
+        worst = check_against(res, expected, f"22 (a) {tag} page")
+        exact = _exact_lines(res)
+        if fused_ref is None:
+            fused_ref = exact
+        elif exact != fused_ref:
+            fail(f"22 (a) {tag}: results differ from "
+                 f"{TRANSPORT_SETTINGS[0][0]}'s")
+        cfg = eng.config
+        t_f = cfg.fetch_max_tokens if 0 < cfg.fetch_max_tokens < T else T
+        n_re = again.get("fused_fetch", 0)
+        want_re = {"forced refetch": n_chunks}.get(
+            tag, long_chunks if t_f == 48 else 0)
+        got_b = timer.bytes["fused_fetch"]
+        want_b = (len(pages) * _fused_row_bytes(cfg, K, t_f)
+                  + n_re * TRANSPORT_CHUNK * _fused_row_bytes(cfg, K, T))
+        rows[tag] = {"refetches": n_re, "bytes": got_b,
+                     "bytes_per_chunk": got_b / n_chunks,
+                     "formula_bytes": want_b, "worst_box_px": worst}
+        print(f"    {tag}: refetched {n_re} of {n_chunks} chunks "
+              f"(due {want_re}); fused_fetch copied {got_b} bytes, "
+              f"{got_b / n_chunks:.0f} a chunk (formula {want_b}); worst "
+              f"box {worst:.5f} px against JAX float32")
+        if n_re != want_re:
+            fail(f"22 (a) {tag}: {n_re} chunks refetched, {want_re} due")
+        if got_b != want_b:
+            fail(f"22 (a) {tag}: {got_b} bytes fetched, the formula says "
+                 f"{want_b}")
+    ccl["22 fused"] = only_path("22 (a) fused lane", "shared")
+    record["fused"] = rows
+    print(f"  (a) {len(TRANSPORT_SETTINGS)} settings bit-identical, each "
+          f"at the goldens bar")
+
+    # (b) the pooled lane, detect, ocr and ocr_tiled on the A4 pages
+    c5, _ = load_c5_fixture()
+    a4 = [c5["dense"], c5["sparse"]]
+    print(f"  (b) pooled lane, detect, ocr, ocr_tiled on the A4 pages, "
+          f"float32 ({smi})")
+    lane_ref = tiled_ref = None
+    rows = {}
+    for tag, over in TRANSPORT_SETTINGS:
+        eng.config = base.replace(**over)
+        reset(counters)
+        pooled, timer, again = run(tag, lambda: eng.ocr_batch(a4,
+                                                             fused=False))
+        # detect and ocr (on the sparse page: the dense one's lines are
+        # too small to detect on the 960 canvas) fetch outside any timer's
+        # bytes, as ocrjax's do
+        (det, single), _, d_again = run(tag, lambda: (
+            eng.detect(a4[1]), eng.ocr(a4[1])))
+        ccl[f"22 lanes {tag}"] = only_path(f"22 (b) {tag}", "shared")
+        exact = (_exact_lines(pooled), _exact_boxes(det),
+                 _exact_lines([single]))
+        eng._det_fetch_adapt = {}
+        states, tiled = [], []
+        reset(counters)
+        for page in a4:
+            r, t_timer, t_again = run(tag, lambda: eng.ocr_tiled(page))
+            tiled.append(r)
+            states.append(eng._det_fetch_adapt.get("full"))
+            for k, v in t_again.items():
+                again[f"tiled {k}"] = again.get(f"tiled {k}", 0) + v
+            for k, v in t_timer.bytes.items():
+                timer.bytes[f"tiled {k}"] += v
+        ccl[f"22 tiled {tag}"] = only_path(f"22 (b) {tag} tiled", "cluster")
+        if lane_ref is None:
+            lane_ref, tiled_ref = exact, _exact_lines(tiled)
+        elif exact != lane_ref or _exact_lines(tiled) != tiled_ref:
+            fail(f"22 (b) {tag}: results differ from "
+                 f"{TRANSPORT_SETTINGS[0][0]}'s")
+        for k, v in d_again.items():
+            again[f"detect, ocr {k}"] = v
+        rows[tag] = {"refetches": again, "bytes": dict(timer.bytes),
+                     "latch": states}
+        cfg = eng.config
+        C, Kf = cfg.det_max_candidates, cfg.det_fetch_candidates
+        n_det = again.get("det_fetch", 0)
+        want_b = (len(a4) * 4 * ((Kf * 10 + 1) if 0 < Kf < C else C * 10)
+                  + n_det * len(a4) * 4 * C * 10)
+        print(f"    {tag}: lines {[len(r.lines) for r in pooled]} pooled, "
+              f"{len(det)} detected, {len(single.lines)} by ocr(), "
+              f"{[len(r.lines) for r in tiled]} tiled; refetches {again}; "
+              f"bytes {dict(timer.bytes)} (det_fetch formula {want_b}); "
+              f"tiled latch after dense, sparse: {states}")
+        if timer.bytes["det_fetch"] != want_b:
+            fail(f"22 (b) {tag}: det_fetch copied "
+                 f"{timer.bytes['det_fetch']} bytes, the formula says "
+                 f"{want_b}")
+        if cfg.det_fetch_candidates == base.det_fetch_candidates \
+                and states != [True, False]:
+            fail(f"22 (b) {tag}: the tiled latch read {states} after the "
+                 f"dense and the sparse page, not [True, False]")
+    record["lanes"] = rows
+
+    # the two host stages the A4 pages do not open: cls_margins (the
+    # pooled lane under try-flip) and tile_host_fallback (a line longer
+    # than a tile)
+    flip_pages, _ = load_flip_fixture()
+    eng.config = base.replace(rec_try_flip=True)
+    reset(counters)
+    _, timer, again = run("try-flip", lambda: eng.ocr_batch(
+        flip_pages, fused=False))
+    ccl["22 try-flip"] = only_path("22 try-flip pooled lane", "shared")
+    rec_b = timer.bytes["rec_fetch_decode"]
+    eng.config = base.replace(tile_size=512, tile_overlap=64)
+    long = _long_line_page(eng.charset)
+    reset(counters)
+    fallback, _, _ = run("fallback", lambda: eng.ocr_tiled(long))
+    # 512-pixel tiles label 128 x 128 grids: the shared path
+    ccl["22 fallback"] = only_path("22 tiled at 512", "shared")
+    print(f"    try-flip pooled lane on the flip pages: rec_fetch_decode "
+          f"{rec_b} bytes, refetches {again}; tiled page with a "
+          f"{long.shape[1] - 100}-pixel line at 512-pixel tiles: "
+          f"{[line.text for line in fallback.lines]}")
+    eng.config = base
+
+    # (d) the async copy, behind a long device queue
+    record["async_copy"], ccl["22 async copy"] = transport_async_copy(
+        counters, eng, pages[:4], smi)
+
+    # (e) the bench's windows by host stage (phase 13's report)
+    print(f"  (e) the bench's last windows (phase 13, bf16), host ms / calls"
+          f" / MB and device ms by stage ({smi}); link_probe "
+          f"{bench['link_probe']}")
+    for lane in ("fused", "bucketed"):
+        rep = bench["stages_last_window"][lane]
+        seen.update(rep["host_ms"])
+        dev = rep["device_ms"]
+        rows = {k: [v["total_ms"], v["calls"], v.get("mb"),
+                    dev[k] if isinstance(dev[k], str) else round(dev[k], 3)]
+                for k, v in sorted(rep["host_ms"].items(),
+                                   key=lambda kv: -kv[1]["total_ms"])}
+        print(f"    {lane}: " + json.dumps(rows))
+    for w in bench["windows_detail"]:
+        print(f"    window {w['path']}: {w['pages_per_sec']:.2f} pages/s, "
+              f"probe rtt {w['probe_rtt_ms']} ms, up {w['probe_up_mb_s']} "
+              f"MB/s, fetch {w['fetch_ms']} ms / {w['fetch_mb']} MB")
+        if w["fetch_ms"] is None or w["fetch_mb"] is None:
+            fail(f"22 (e): a bench window has no fetch fields: {w}")
+    record["bench_link_probe"] = bench["link_probe"]
+
+    # (f) phase 16's sharded fused program
+    fp = parallel["fused_payload"]
+    print(f"  (f) sharded fused program (phase 16): {fp['gathers']} "
+          f"all_gather a call for the {fp['dtype']} {fp['shape']} payload, "
+          f"bytes equal to the unsharded program's {fp['equal_bytes']}, "
+          f"worst box {parallel['fused_worst_box_px']:.5f} px ({smi})")
+    record["sharded"] = fp
+    missing = [s for s in HOST_STAGES if s not in seen]
+    if missing:
+        fail(f"22: ocrjax's host stages {missing} never opened")
+    secs = time.perf_counter() - t_phase
+    record["s"] = secs
+    print(f"  all 13 of ocrjax's host stages opened; phase 22: {secs:.1f} s "
+          f"({smi})")
+    with open(os.path.join(PKG, "_build", "transport.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    return ccl, record
+
+
+def transport_async_copy(counters, eng, pages, smi: str) -> tuple:
+    """22 (d): a pinned non-blocking copy issued behind a long device queue
+    (a device sleep, then a matmul) is still pending when HostCopy
+    returns, and equals a blocking .cpu() once its event is waited on; a
+    fused payload's copy too. Returns (the record, K1's launches by path
+    in the fused call)."""
+    import numpy as np
+    import torch
+    from ocrjax_torch import fused as F
+    from ocrjax_torch.ops import bytepack
+    x = torch.randn(2048, 2048, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(TRANSPORT_SLEEP_CYCLES)
+    y = (x @ x)[:, :64] + 1.0
+    t0 = time.perf_counter()
+    cp = bytepack.HostCopy(y)
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    pending = not cp.event.query()
+    t0 = time.perf_counter()
+    got = cp.result()
+    wait_ms = (time.perf_counter() - t0) * 1e3
+    want = y.cpu().numpy()
+    packed, thr, wh = _fused_inputs(eng, pages)
+    reset(counters)
+    payload = F.FusedOcr(eng, eng.config.fused_lines_per_page, 320)(
+        torch.from_numpy(packed).cuda(), tuple(float(v) for v in thr),
+        torch.from_numpy(wh).cuda())
+    by_path = only_path("22 (d) fused payload", "shared")
+    p_copy = bytepack.HostCopy(payload)
+    same_payload = bool(np.array_equal(p_copy.result(),
+                                       payload.cpu().numpy()))
+    rec = {"pinned": cp.buf.is_pinned() and p_copy.buf.is_pinned(),
+           "pending": pending, "issue_ms": issue_ms, "wait_ms": wait_ms,
+           "equal": bool(np.array_equal(got, want)),
+           "fused_payload_equal": same_payload}
+    print(f"  (d) pinned non-blocking copy behind a {TRANSPORT_SLEEP_CYCLES}"
+          f"-cycle device sleep: pinned {rec['pinned']}, still pending when"
+          f" issued {pending}, issued in {issue_ms:.3f} ms, read after its "
+          f"event in {wait_ms:.1f} ms (host clock), equal to .cpu() "
+          f"{rec['equal']}; a fused payload's copy equal {same_payload} "
+          f"({smi})")
+    if not (rec["pinned"] and pending and rec["equal"] and same_payload):
+        fail(f"22 (d): the async copy {rec}")
+    return rec, by_path
+
+
+def _fused_inputs(eng, pages) -> tuple:
+    """(packed canvases, thresholds, valid (w, h)) of pages for FusedOcr."""
+    import numpy as np
+    from ocrjax_torch import preprocess
+    cfg = eng.config
+    grays, _, valid_hw, _, _ = preprocess.decode_chunk_to_gray(
+        pages, range(len(pages)), cfg)
+    return (preprocess.pack_for_upload(grays, cfg),
+            np.asarray([cfg.det_thresh, cfg.det_box_thresh,
+                        cfg.det_unclip_ratio, float(cfg.det_min_box_size)],
+                       np.float32),
+            valid_hw[:, ::-1].astype(np.float32).copy())
+
+
+# the script's start on the host clock, for the phase headers
+T0 = [0.0]
+
+
+def header(line: str) -> None:
+    """A phase's header line with the seconds since the script started."""
+    print(f"{line} [t={time.perf_counter() - T0[0]:.1f} s]", flush=True)
+
+
 def main() -> int:
     # cuBLAS's deterministic mode (phase 15) needs this before it starts
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    T0[0] = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -3715,78 +4085,83 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     smi = smi_line()
-    print(f"== 0. environment: {smi}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    header(f"== 0. environment: {smi}; torch {torch.__version__}, CUDA "
+           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     build_kernels()
     from ocrjax_torch.ops.cc_label import label_components_cuda
     from ocrjax_torch.ops.conv_fused import conv3x3_bn_relu_cuda
     counters = [label_components_cuda, conv3x3_bn_relu_cuda]
 
-    print("== 1. kernels vs their plain versions")
+    header("== 1. kernels vs their plain versions")
     ccl = phase_kernels()
     conv_err = phase_conv_kernel()
-    print("== 2. fused lane, float32")
+    header("== 2. fused lane, float32")
     pages, expected = load_fixture()
     ccl_phases = {}
     eng32, fp32, ccl_phases["2"] = phase_fp32(pages, expected, counters)
-    print("== 3. fused lane, bfloat16")
+    header("== 3. fused lane, bfloat16")
     from ocrjax_torch.preprocess import native_calls
     before = dict(native_calls)
     eng16, _, ccl_phases["3"] = phase_bf16(pages, fp32, counters)
     native3 = {k: native_calls[k] - before.get(k, 0)
                for k in ("pack", "decode")}
-    print("== 4. conv bench")
+    header("== 4. conv bench")
     conv = phase_conv_bench(counters, conv_err)
-    print("== 5. staged and rerouted lanes, float32")
+    header("== 5. staged and rerouted lanes, float32")
     fixture = load_lane_fixture()
     lanes32, ccl_phases["5"] = phase_lanes_fp32(eng32, fixture, counters)
-    print("== 6. staged and rerouted lanes, bfloat16")
+    header("== 6. staged and rerouted lanes, bfloat16")
     phase_lanes_bf16(eng16, fixture, lanes32)
-    print("== 7. beam CTC")
+    header("== 7. beam CTC")
     ccl_phases["7"] = phase_beam_fp32(eng32, pages, fixture, counters)
     beam = phase_beam_bf16(eng16, pages)
-    print("== 8. orientation (rec_try_flip)")
+    header("== 8. orientation (rec_try_flip)")
     ccl_phases["8"] = phase_flip_fp32(counters)
     cls_ms = phase_flip_bf16()
-    print("== 9. C5 tiled OCR at 2048-pixel tiles")
+    header("== 9. C5 tiled OCR at 2048-pixel tiles")
     ccl_phases["9"], c5_32 = phase_c5_fp32(counters)
     ccl_phases["9 bf16"], c5 = phase_c5_bf16(counters, c5_32)
-    print("== 10. opt-in paths, float32")
+    header("== 10. opt-in paths, float32")
     ccl_phases["10"], optin32 = phase_optin_fp32(counters, pages, fixture)
-    print("== 11. opt-in paths, bfloat16")
+    header("== 11. opt-in paths, bfloat16")
     ccl_phases["11"], optin16 = phase_optin_bf16(counters, pages, fixture,
                                                  optin32)
-    print("== 12. the CLI on PNG files")
+    header("== 12. the CLI on PNG files")
     ccl_phases["12"], ccl_phases["12 tiled"], cli_ms = phase_cli(counters,
                                                                  pages)
-    print("== 13. the bench (run_bench on the committed traffic)")
-    ccl_phases["13"], ccl_phases["13 C5"], _ = phase_bench(counters)
-    print("== 14. e2e_eval on the committed pages")
+    header("== 13. the bench (run_bench on the committed traffic)")
+    ccl_phases["13"], ccl_phases["13 C5"], bench = phase_bench(counters)
+    header("== 14. e2e_eval on the committed pages")
     ccl_phases["14"] = phase_e2e(counters)
-    print("== 15. training: rec, det and cls steps at full width")
+    header("== 15. training: rec, det and cls steps at full width")
     phase_train()
-    print("== 16. parallel: sharded serving and training, NCCL, world size 1")
-    ccl_phases.update(phase_parallel())
-    print("== 17. the native host library")
+    header("== 16. parallel: sharded serving and training, NCCL, world size 1")
+    par_ccl, parallel = phase_parallel()
+    ccl_phases.update(par_ccl)
+    header("== 17. the native host library")
     phase_native(eng16, pages, fixture, native3)
-    print("== 18. assets: the reference's recipes through the port's scripts")
+    header("== 18. assets: the reference's recipes through the port's scripts")
     assets, _ = phase_assets(counters)
     ccl_phases.update({f"18 {k}": v for k, v in assets.items()})
     t19 = time.perf_counter()
-    print("== 19. the reference's hardware gates (tests/test_tpu.py), "
-          "bfloat16")
+    header("== 19. the reference's hardware gates (tests/test_tpu.py), "
+           "bfloat16")
     gates_ccl, conv19, gates = phase_gates(counters)
     ccl_phases.update(gates_ccl)
-    print("== 20. the reference's evaluation and bench scripts, bfloat16")
+    header("== 20. the reference's evaluation and bench scripts, bfloat16")
     scripts_ccl, scripts = phase_scripts(counters)
     ccl_phases.update(scripts_ccl)
-    print("== 21. the reference's diagnostic scripts, bfloat16")
+    header("== 21. the reference's diagnostic scripts, bfloat16")
     diag_ccl, diag = phase_diag(counters)
     ccl_phases.update(diag_ccl)
     print(f"  phases 19-21: {time.perf_counter() - t19:.1f} s")
     with open(os.path.join(PKG, "_build", "gates_scripts.json"), "w") as f:
         json.dump({"gates": gates, "scripts": scripts, "diag": diag}, f,
                   indent=1)
+    header(f"== 22. transport: packed payloads, truncated fetches, the "
+           f"async copy ({smi})")
+    transport_ccl, _ = phase_transport(counters, smi, bench, parallel)
+    ccl_phases.update(transport_ccl)
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],

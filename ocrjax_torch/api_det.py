@@ -14,11 +14,12 @@ Call structure of the staged ocr():
                                              CTC)
   (host: charset lookup, reading order; reversed for an upside-down page)
 
-The reference packs the candidates and the recognition outputs into byte
-rows and fetches a truncated prefix first (pack_det, _truncate_det_jit,
-fetch_det, _pack_rec_flip) to save round trips on a slow host link; none of
-that changes a result. The port returns tensors and copies them to the host
-once.
+Transport, as the reference's: the candidates travel as one float32 row
+a page (pack_det), and fetch_det copies the first det_fetch_candidates
+slots of it first, refetching the whole row only where a page used a
+later slot; the recognition outputs travel as one packed row a line
+(pack_rec, pack_rec_flip: uint8 under cfg.fetch_bytes, see ops.bytepack).
+None of it changes a result.
 """
 
 from __future__ import annotations
@@ -31,11 +32,11 @@ import torch
 from ocrjax_torch import geometry, preprocess
 from ocrjax_torch.models import cls as cls_lib
 from ocrjax_torch.models import db_int8
-from ocrjax_torch.ops import ctc
+from ocrjax_torch.ops import bytepack, ctc
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils import flatband
-from ocrjax_torch.utils.profiling import stage
+from ocrjax_torch.utils.profiling import StageTimer, stage
 
 
 def upload(engine, a: np.ndarray) -> torch.Tensor:
@@ -86,13 +87,98 @@ def det_state(engine) -> DetState:
     return engine._det
 
 
-def fetch_det(cands: Sequence[Dict[str, torch.Tensor]]):
-    """Candidate dicts of several chunks -> host (boxes (B, C, 4, 2),
-    scores (B, C), valid (B, C)), one copy per tensor."""
-    def cat(key):
-        ts = [c[key] for c in cands]
-        return (torch.cat(ts) if len(ts) > 1 else ts[0]).cpu().numpy()
-    return cat("boxes"), cat("scores"), cat("valid")
+def pack_det(cand: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """A candidate dict -> one (B, C * 10) float32 row a page: boxes (C * 8
+    canvas px), scores (C), valid (C, as 0/1), so a chunk's candidates are
+    one copy."""
+    B, C = cand["scores"].shape
+    return torch.cat([cand["boxes"].reshape(B, C * 8).float(),
+                      cand["scores"].float(), cand["valid"].float()], dim=1)
+
+
+def unpack_det(packed: np.ndarray, C: int):
+    """Host side inverse of pack_det -> (boxes (B, C, 4, 2), scores (B, C),
+    valid (B, C))."""
+    B = packed.shape[0]
+    return (packed[:, :C * 8].reshape(B, C, 4, 2), packed[:, C * 8:C * 9],
+            packed[:, C * 9:] > 0.5)
+
+
+def truncate_det(packed: torch.Tensor, C: int, Kf: int) -> torch.Tensor:
+    """The first Kf slots of a pack_det row and the page's highest used
+    slot plus one (n_need) -> (B, Kf * 10 + 1). Exact by construction:
+    extract_boxes fills its slots in ascending raster root order (the
+    sort over root values with a BIG sentinel, postprocess/db_boxes.py),
+    so a page's components are a prefix of its C slots, every valid slot
+    below n_need, and the host refetches the full row only where n_need
+    passes Kf (fetch_det)."""
+    B = packed.shape[0]
+    boxes = packed[:, :C * 8].reshape(B, C, 8)[:, :Kf].reshape(B, Kf * 8)
+    valid = packed[:, C * 9:C * 10]
+    slot = torch.arange(1, C + 1, dtype=torch.float32, device=packed.device)
+    n_need = torch.where(valid > 0.5, slot, 0.0).amax(dim=1, keepdim=True)
+    return torch.cat([boxes, packed[:, C * 8:C * 8 + Kf], valid[:, :Kf],
+                      n_need], dim=1)
+
+
+def fetch_det(packed_chunks: Sequence[torch.Tensor], cfg, C: int = None,
+              adapt: dict = None, timer: StageTimer = None,
+              stage: str = "det_fetch"):
+    """pack_det rows of several chunks -> host (boxes (B, C, 4, 2), scores
+    (B, C), valid (B, C)) by ocrjax's truncated first fetch
+    (cfg.det_fetch_candidates = Kf): every chunk's first Kf slots a page
+    are copied (all copies started before any is read), and a chunk is
+    refetched whole only where a page used a later slot. Exact always:
+    the prefix is padded back to C slots with invalid ones. timer: the
+    StageTimer that counts the copied bytes under `stage`.
+
+    adapt: a dict carrying a saturation latch across the calls of one
+    stream (the tiled lanes pass one scoped to the engine). Dense C5 tiles
+    overflow the prefix every time, so after one overflow the latch
+    fetches whole rows first; it resets once a fetch's highest used slot
+    is back at or under Kf / 2."""
+    C = cfg.det_max_candidates if C is None else C
+    Kf = cfg.det_fetch_candidates
+
+    def count(arr):
+        if timer is not None:
+            timer.add_bytes(stage, arr.nbytes)
+        return arr
+
+    if not (0 < Kf < C) or (adapt or {}).get("full"):
+        arr = count(bytepack.fetch(torch.cat(list(packed_chunks))
+                                   if len(packed_chunks) > 1
+                                   else packed_chunks[0]))
+        out = unpack_det(arr, C)
+        if adapt is not None and adapt.get("full") and 0 < Kf < C:
+            cols = np.nonzero(out[2])[1]
+            if cols.max(initial=-1) + 1 <= Kf // 2:
+                adapt["full"] = False      # the stream went sparse again
+        return out
+    copies = [bytepack.HostCopy(truncate_det(p, C, Kf))
+              for p in packed_chunks]
+    bs, ss, vs = [], [], []
+    for cp, p in zip(copies, packed_chunks):
+        arr = count(cp.result())
+        if arr[:, Kf * 10].max(initial=0) > Kf:  # a page used a later slot
+            bytepack.refetches[stage] += 1
+            b, sc, v = unpack_det(count(bytepack.fetch(p)), C)
+            if adapt is not None:
+                adapt["full"] = True
+        else:
+            n = arr.shape[0]
+            b = np.zeros((n, C, 4, 2), np.float32)
+            sc = np.zeros((n, C), np.float32)
+            v = np.zeros((n, C), bool)
+            b[:, :Kf] = arr[:, :Kf * 8].reshape(n, Kf, 4, 2)
+            sc[:, :Kf] = arr[:, Kf * 8:Kf * 9]
+            v[:, :Kf] = arr[:, Kf * 9:Kf * 10] > 0.5
+        bs.append(b)
+        ss.append(sc)
+        vs.append(v)
+    if len(bs) == 1:
+        return bs[0], ss[0], vs[0]
+    return np.concatenate(bs), np.concatenate(ss), np.concatenate(vs)
 
 
 def _detect_canvas(engine, image, gray_fn=None):
@@ -111,7 +197,7 @@ def _detect_canvas(engine, image, gray_fn=None):
         canvas = gray_fn(canvas)
     canvas_dev = upload(engine, preprocess.pack_for_upload(canvas[None], cfg))
     _, cand = det_state(engine).forward(canvas_dev)
-    boxes, scores, valid = (a[0] for a in fetch_det([cand]))
+    boxes, scores, valid = (a[0] for a in fetch_det([pack_det(cand)], cfg))
     # drop candidates whose centre lies in canvas padding
     cx = boxes[:, :, 0].mean(axis=1)
     cy = boxes[:, :, 1].mean(axis=1)
@@ -175,6 +261,60 @@ def rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
     crops should already be ink-refined (ops.warp two-pass warps)."""
     strips = warp_lib.maybe_dewarp_curl(strips, widths, engine.config)
     return crnn_decode(engine, strips, widths, beam)
+
+
+def pack_rec(engine, tokens: torch.Tensor, n_tokens: torch.Tensor,
+             conf: torch.Tensor) -> torch.Tensor:
+    """Recognition outputs -> one row a line, one copy for a chunk:
+    (n, T + 5) uint8 under cfg.fetch_bytes (tokens, n_tokens, conf's four
+    bytes; ops.bytepack), else (n, T + 2) float32 (tokens, n_tokens,
+    conf)."""
+    if bytepack.use_byte_fetch(engine):
+        return torch.cat([tokens.to(torch.uint8),
+                          n_tokens[:, None].to(torch.uint8),
+                          bytepack.f32_to_bytes(conf[:, None])], dim=1)
+    return torch.cat([tokens.float(), n_tokens[:, None].float(),
+                      conf[:, None].float()], dim=1)
+
+
+def unpack_rec(packed: np.ndarray, max_tokens: int):
+    """Host side inverse of pack_rec (either dtype) -> (tokens (n, T) int32,
+    n_tokens (n,) int32, conf (n,) float32)."""
+    T = max_tokens
+    if packed.dtype == np.uint8:
+        return (packed[:, :T].astype(np.int32),
+                packed[:, T].astype(np.int32),
+                bytepack.bytes_to_f32(packed[:, T + 1:T + 5])[:, 0])
+    return (packed[:, :T].astype(np.int32), packed[:, T].astype(np.int32),
+            packed[:, T + 1])
+
+
+def pack_rec_flip(engine, tokens: torch.Tensor, n_tokens: torch.Tensor,
+                  conf: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
+    """pack_rec with the orientation stage's flips: (n, T + 6) uint8
+    (tokens, n_tokens, flip, conf's four bytes) under cfg.fetch_bytes,
+    else (n, T + 3) float32 with conf before flip (the reference's legacy
+    column order)."""
+    if bytepack.use_byte_fetch(engine):
+        return torch.cat([tokens.to(torch.uint8),
+                          n_tokens[:, None].to(torch.uint8),
+                          flip[:, None].to(torch.uint8),
+                          bytepack.f32_to_bytes(conf[:, None])], dim=1)
+    return torch.cat([tokens.float(), n_tokens[:, None].float(),
+                      conf[:, None].float(), flip[:, None].float()], dim=1)
+
+
+def unpack_rec_flip(packed: np.ndarray, max_tokens: int):
+    """Host side inverse of pack_rec_flip (either dtype) -> (tokens,
+    n_tokens, conf, flipped)."""
+    T = max_tokens
+    if packed.dtype == np.uint8:
+        return (packed[:, :T].astype(np.int32),
+                packed[:, T].astype(np.int32),
+                bytepack.bytes_to_f32(packed[:, T + 2:T + 6])[:, 0],
+                packed[:, T + 1] > 0)
+    return (packed[:, :T].astype(np.int32), packed[:, T].astype(np.int32),
+            packed[:, T + 1], packed[:, T + 2] > 0.5)
 
 
 def _cls_margins(engine, strips: torch.Tensor, widths: torch.Tensor):
@@ -393,12 +533,15 @@ def ocr(engine, image, beam: bool = False, force_staged: bool = False,
             engine.warn_untrained_cls()
             seg = np.concatenate([np.zeros(n, np.int64),
                                   np.arange(1, nb - n + 1)])
-            out = rec_strips_flip(engine, strips, widths,
-                                  upload(engine, seg), beam)
+            tokens, n_tokens, conf, flips = unpack_rec_flip(
+                bytepack.fetch(pack_rec_flip(engine, *rec_strips_flip(
+                    engine, strips, widths, upload(engine, seg), beam))),
+                cfg.rec_max_tokens)
+            flips = flips[:n]
         else:
             out = rec_strips(engine, strips, widths, beam)
-        tokens, n_tokens, conf = (t.cpu().numpy() for t in out[:3])
-        flips = out[3].cpu().numpy()[:n] if cfg.rec_try_flip else []
+            tokens, n_tokens, conf = (t.cpu().numpy() for t in out)
+            flips = []
 
     quads_orig = [geometry.scale_quads(boxes[i], scale) for i in idx]
     lines = []
@@ -571,9 +714,9 @@ def ocr_fullres_batch(engine, images, beam: bool = False
     for lo in range(0, len(live), C):
         grays = np.stack([preprocess.to_gray(canvases[i])
                           for i in live[lo:lo + C]])
-        cands.append(st.forward(
-            upload(engine, preprocess.pack_for_upload(grays, cfg)))[1])
-    boxes, scores, valid = fetch_det(cands)
+        cands.append(pack_det(st.forward(
+            upload(engine, preprocess.pack_for_upload(grays, cfg)))[1]))
+    boxes, scores, valid = fetch_det(cands, cfg)
 
     items = []
     for row, i in enumerate(live):

@@ -8,12 +8,13 @@ the committed traffic, writes the full report to BENCH_DETAIL_TORCH.json
 at the repository root and prints one line: the median e2e window's
 pages/s (metric pages_per_sec_per_chip_e2e_median), every window, the
 device-resident pages/s, p50 page latency, crops/s and the dense C5
-numbers. A watchdog thread bounds the run (OCRJAX_BENCH_DEADLINE_S, default
-1800 s): past it, the best completed window with an `error` (exit 0), or a
-zero record (exit 3) when no window completed. The record carries no
-comparison with a TPU target and no link fields; a degraded record
-carries the last completed run of this port (BENCH_DETAIL_TORCH.json) as
-context, never as its value.
+numbers, and the host link's probe (link_probe), as the reference's
+record does. A watchdog thread bounds the run (OCRJAX_BENCH_DEADLINE_S,
+default 1800 s): past it, the best completed window with an `error` (exit
+0), or a zero record (exit 3) when no window completed. No record carries
+a comparison with a TPU target; a degraded record carries the last
+completed run of this port (BENCH_DETAIL_TORCH.json) as context, never as
+its value.
 """
 
 from __future__ import annotations
@@ -116,6 +117,9 @@ def main() -> None:
         "dense_lines_per_sec": round(report["dense_lines_per_sec"], 0),
         "dense_pages_per_sec_device": round(
             report["dense_pages_per_sec_device"], 2),
+        # the link's state at the run's start: read the e2e numbers
+        # against it
+        "link_probe": report["link_probe"],
     }), flush=True)
 
 

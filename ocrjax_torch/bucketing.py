@@ -17,6 +17,13 @@ Pipeline (ocr_pages):
 
 With rec_try_flip the orientation is decided in two phases over whole
 pages (recognize_pooled), and landscape scans are redone rotated.
+
+Host stages, as the reference names them: host_decode (the wait for the
+lookahead decode of the next chunk), det_dispatch, det_fetch (the
+truncated candidate fetch, api_det.fetch_det), warp_norm, cls_margins,
+rec_dispatch (every recognition chunk packed, concatenated, its copy to
+the host started) and rec_fetch_decode (the first fetch_max_tokens token
+columns read, the rare refetch, the strings).
 """
 
 from __future__ import annotations
@@ -27,8 +34,9 @@ import numpy as np
 import torch
 
 from ocrjax_torch import geometry, preprocess
+from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
-from ocrjax_torch.utils.profiling import stage
+from ocrjax_torch.utils.profiling import add_bytes, current, stage
 
 
 def assign_width_buckets(est_widths: np.ndarray, buckets: Sequence[int]
@@ -83,7 +91,10 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
     dispatch per (width bucket, warp kind, count chunk): near-axis-aligned
     quads take the separable warp, tilted or tall ones the homography warp,
     and a bucket holding more quads than the largest count bucket is split.
-    Every dispatch is issued before any result is copied to the host. (The
+    Every dispatch is issued before any result is copied to the host: the
+    chunks' packed rows (api_det.pack_rec / pack_rec_flip) are concatenated
+    on the device and copied once, their first fetch_max_tokens token
+    columns first, the whole rows again only if a line has more. (The
     reference pads the page axis to a power of two to bound its compiled
     programs; eager PyTorch needs no such padding.)
 
@@ -94,8 +105,9 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
     B rotates the chosen strips and recognizes."""
     from ocrjax_torch.api_det import (_estimate_strip_widths,
                                       apply_page_prior, cls_margins_multi,
-                                      rec_strips, rec_strips_forced_flip,
-                                      upload)
+                                      pack_rec, pack_rec_flip, rec_strips,
+                                      rec_strips_forced_flip, unpack_rec,
+                                      unpack_rec_flip, upload)
 
     cfg = engine.config
     warp_src = quads
@@ -129,70 +141,101 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
     flips_all = np.zeros(len(quads), bool)
     if try_flip:
         engine.warn_untrained_cls()
-        pend = []
-        for bucket_w, idx, _ in chunks:
-            sel = padded(idx)
-            pend.append((idx, cls_margins_multi(
-                engine, gray_dev, upload(engine, page_ids[sel].astype(
-                    np.int64)), upload(engine, warp_src[sel].astype(
-                        np.float32)), bucket_w)))
-        # one copy to the host for every chunk's margins
-        host = torch.cat([m for _, m in pend]).cpu()
-        margins = torch.zeros(len(quads))
-        off = 0
-        for idx, m in pend:
-            margins[torch.from_numpy(idx)] = host[off:off + len(idx)]
-            off += m.shape[0]
-        if cfg.cls_page_prior > 0:
-            seg = np.unique(prior_ids if prior_ids is not None else page_ids,
-                            return_inverse=True)[1].reshape(-1)
-            margins = apply_page_prior(
-                margins, torch.from_numpy(est_w.astype(np.int32)),
-                torch.from_numpy(seg), cfg.cls_page_prior)
-        flips_all = (margins > 0).numpy()
+        with stage("cls_margins"):
+            pend = []
+            for bucket_w, idx, _ in chunks:
+                sel = padded(idx)
+                pend.append((idx, cls_margins_multi(
+                    engine, gray_dev, upload(engine, page_ids[sel].astype(
+                        np.int64)), upload(engine, warp_src[sel].astype(
+                            np.float32)), bucket_w)))
+            # one copy to the host for every chunk's margins
+            host = torch.from_numpy(bytepack.fetch(
+                torch.cat([m for _, m in pend])))
+            margins = torch.zeros(len(quads))
+            off = 0
+            for idx, m in pend:
+                margins[torch.from_numpy(idx)] = host[off:off + len(idx)]
+                off += m.shape[0]
+            if cfg.cls_page_prior > 0:
+                seg = np.unique(prior_ids if prior_ids is not None
+                                else page_ids,
+                                return_inverse=True)[1].reshape(-1)
+                margins = apply_page_prior(
+                    margins, torch.from_numpy(est_w.astype(np.int32)),
+                    torch.from_numpy(seg), cfg.cls_page_prior)
+            flips_all = (margins > 0).numpy()
 
     pad_v = (0.0 - cfg.rec_mean) / cfg.rec_std
+    tokT = cfg.rec_max_tokens
+    t_eff = (cfg.fetch_max_tokens
+             if 0 < cfg.fetch_max_tokens < tokT else tokT)
     pending = []
-    for bucket_w, idx, sep in chunks:
-        sel = padded(idx)
-        ids = upload(engine, page_ids[sel].astype(np.int64))
-        ws = upload(engine, warp_src[sel].astype(np.float32))
-        kw = dict(rec_height=cfg.rec_height, bucket_width=bucket_w,
-                  pad_value=pad_v)
-        if sep:
-            kw["tile_h"] = cfg.pooled_sep_tile_h
-        with stage("warp_refine"):
-            if cfg.rec_snap_to_ink:
-                refined_warp = (warp_lib.warp_quads_multi_sep_refined if sep
-                                else warp_lib.warp_quads_multi_refined)
-                strips, widths = refined_warp(
-                    gray_dev, ids, ws, upload(engine, b_all[sel]),
-                    ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
-                    margin_fracs=(cfg.rec_crop_margin, cfg.rec_crop_margin),
-                    x_margin_keep=cfg.rec_ink_x_margin_keep,
-                    orig_quads=upload(engine, quads[sel].astype(np.float32)),
-                    flat_frac=cfg.rec_flat_band_frac,
-                    case_gate=cfg.rec_flat_case_gate, **kw)
-            elif sep:
-                strips, widths = warp_lib.warp_quads_multi_separable(
-                    gray_dev, ids, ws, **kw)
+    with stage("rec_dispatch"):
+        for bucket_w, idx, sep in chunks:
+            sel = padded(idx)
+            ids = upload(engine, page_ids[sel].astype(np.int64))
+            ws = upload(engine, warp_src[sel].astype(np.float32))
+            kw = dict(rec_height=cfg.rec_height, bucket_width=bucket_w,
+                      pad_value=pad_v)
+            if sep:
+                kw["tile_h"] = cfg.pooled_sep_tile_h
+            with stage("warp_refine"):
+                if cfg.rec_snap_to_ink:
+                    refined_warp = (warp_lib.warp_quads_multi_sep_refined
+                                    if sep
+                                    else warp_lib.warp_quads_multi_refined)
+                    strips, widths = refined_warp(
+                        gray_dev, ids, ws, upload(engine, b_all[sel]),
+                        ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
+                        margin_fracs=(cfg.rec_crop_margin,
+                                      cfg.rec_crop_margin),
+                        x_margin_keep=cfg.rec_ink_x_margin_keep,
+                        orig_quads=upload(engine,
+                                          quads[sel].astype(np.float32)),
+                        flat_frac=cfg.rec_flat_band_frac,
+                        case_gate=cfg.rec_flat_case_gate, **kw)
+                elif sep:
+                    strips, widths = warp_lib.warp_quads_multi_separable(
+                        gray_dev, ids, ws, **kw)
+                else:
+                    strips, widths = warp_lib.warp_quads_multi(
+                        gray_dev, ids, ws, **kw)
+            if try_flip:
+                out = pack_rec_flip(engine, *rec_strips_forced_flip(
+                    engine, strips, widths, upload(engine, flips_all[sel]),
+                    beam))
             else:
-                strips, widths = warp_lib.warp_quads_multi(
-                    gray_dev, ids, ws, **kw)
-        if try_flip:
-            out = rec_strips_forced_flip(
-                engine, strips, widths, upload(engine, flips_all[sel]), beam)
-        else:
-            out = rec_strips(engine, strips, widths, beam)
-        pending.append((idx, out))
+                out = pack_rec(engine, *rec_strips(engine, strips, widths,
+                                                   beam))
+            pending.append((idx, out))
+        # every chunk's rows in one device concat and one copy, the first
+        # t_eff token columns a line first (the full concat stays on the
+        # device for the rare longer line)
+        pcat = (torch.cat([o for _, o in pending]) if len(pending) > 1
+                else pending[0][1])
+        copy = bytepack.HostCopy(pcat if t_eff == tokT else
+                                 bytepack.truncate_tokens(pcat, 1, tokT,
+                                                          t_eff))
 
     texts = [None] * len(quads)
     confs = [0.0] * len(quads)
-    for idx, out in pending:
-        tokens, n_tokens, conf = (t.cpu().numpy() for t in out[:3])
-        for k, qi in enumerate(idx):
-            texts[qi] = engine.charset.decode(tokens[k][: n_tokens[k]])
-            confs[qi] = float(conf[k])
+    with stage("rec_fetch_decode"):
+        phost = copy.result()
+        add_bytes("rec_fetch_decode", phost.nbytes)
+        if t_eff < tokT and phost[:, t_eff].max(initial=0) > t_eff:
+            phost, t_eff = bytepack.fetch(pcat), tokT  # a line passed t_eff
+            add_bytes("rec_fetch_decode", phost.nbytes)
+            bytepack.refetches["rec_fetch_decode"] += 1
+        unpack = unpack_rec_flip if try_flip else unpack_rec
+        off = 0
+        for idx, out in pending:
+            tokens, n_tokens, conf = unpack(phost[off:off + out.shape[0]],
+                                            t_eff)[:3]
+            off += out.shape[0]
+            for k, qi in enumerate(idx):
+                texts[qi] = engine.charset.decode(tokens[k][: n_tokens[k]])
+                confs[qi] = float(conf[k])
     return texts, confs, [bool(f) for f in flips_all]
 
 
@@ -210,8 +253,10 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
     (_allow_rot90 keeps that redo from recursing)."""
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
     from ocrjax_torch.api_det import (_is_landscape, det_state, fetch_det,
-                                      gray_norm, pooled_fullres_from_boxes,
+                                      gray_norm, pack_det,
+                                      pooled_fullres_from_boxes,
                                       reading_order, upload)
+    from ocrjax_torch.fused import _get_prefetch_pool
 
     cfg = engine.config
     B = len(images)
@@ -223,16 +268,29 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
     valid_hw = np.zeros((B, 2), np.int64)
     ok = np.ones((B,), bool)
     originals: Dict[int, np.ndarray] = {}
+
+    def decode(lo: int, hi: int):
+        return preprocess.decode_chunk_to_gray(images, range(lo, hi), cfg,
+                                               originals_out=originals)
+
+    # chunk k + 1 decodes on the fused lane's lookahead thread while chunk
+    # k is uploaded and dispatched
+    bounds = [(lo, min(lo + C, B)) for lo in range(0, B, C)]
+    pending_decode = _get_prefetch_pool().submit(decode, *bounds[0])
     chunk_devs, cands = [], []
-    for lo in range(0, B, C):
-        hi = min(lo + C, B)
-        grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], _ = \
-            preprocess.decode_chunk_to_gray(images, range(lo, hi), cfg,
-                                            originals_out=originals)
-        dev = upload(engine, preprocess.pack_for_upload(grays, cfg))
-        chunk_devs.append(dev)
-        cands.append(st.forward(dev)[1])
-    boxes, scores, valid = fetch_det(cands)
+    for ci, (lo, hi) in enumerate(bounds):
+        with stage("host_decode"):
+            grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], _ = \
+                pending_decode.result()
+        if ci + 1 < len(bounds):
+            pending_decode = _get_prefetch_pool().submit(
+                decode, *bounds[ci + 1])
+        with stage("det_dispatch"):
+            dev = upload(engine, preprocess.pack_for_upload(grays, cfg))
+            chunk_devs.append(dev)
+            cands.append(pack_det(st.forward(dev)[1]))
+    with stage("det_fetch"):
+        boxes, scores, valid = fetch_det(cands, cfg, timer=current())
     for i in range(B):
         nh, nw = valid_hw[i]
         cx = boxes[i, :, :, 0].mean(axis=1)
@@ -270,7 +328,8 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
         # per-quad bounds: that page's valid region (never canvas padding)
         b_all = (valid_hw[page_ids][:, ::-1].astype(np.float32)
                  - 1.0)[:, None, :]
-        with torch.inference_mode(), stage("warp_refine"):
+        with torch.inference_mode(), stage("warp_norm"), \
+                stage("warp_refine"):
             normed = [gray_norm(engine, d) for d in chunk_devs]
             gray_dev = torch.cat(normed) if len(normed) > 1 else normed[0]
         texts, confs, flips = recognize_pooled(

@@ -4,13 +4,28 @@ Every field of ocrjax's OcrConfig is kept, with the same name, type and
 default, so the `config` JSON in an asset's metadata parses the same way in
 both packages. See ocrjax/config.py for the measurements behind each default.
 
-The port acts on every field as the reference does, except three:
-  * fetch_bytes, fetch_max_tokens, det_fetch_candidates describe how the
-    TPU program packed its outputs into bytes for a slow host link. The port
-    returns its outputs as tensors and packs nothing, so they are ignored.
-  * upload_bits stays meaningful: 4 means the page is quantized to 16 levels
-    with a Bayer dither before detection (preprocess.pack_nibbles), which
-    changes the input itself, so the port keeps it.
+The port acts on every field as the reference does. The transport fields
+say how a lane's results leave the card (ops.bytepack); none of them
+changes a result:
+  * fetch_bytes: the fused and recognition payloads are packed as uint8
+    rows (token ids, counts and flags as bytes, each float32 column as its
+    four raw bytes) instead of float32 rows, about 3x fewer bytes to copy.
+    Byte packing holds only for charsets of at most 255 classes and
+    rec_max_tokens <= 255 (bytepack.use_byte_fetch); past that the
+    float32 rows are kept.
+  * fetch_max_tokens: the host first copies the first N token columns a
+    line of a fused or pooled payload, and refetches the whole payload,
+    still on the card, only for a chunk in which some line has more than
+    N tokens. 0 copies every column.
+  * det_fetch_candidates: the host first copies the first N candidate
+    slots a page and the page's highest used slot (slots fill as a prefix
+    in raster root order), and refetches the whole candidate rows of a
+    chunk in which some page used a later slot; the tiled lanes keep a
+    latch that fetches whole rows after an overflow until a sparse fetch.
+    0 copies every slot.
+  * upload_bits: 4 means the page is quantized to 16 levels with a Bayer
+    dither before detection (preprocess.pack_nibbles), which changes the
+    input itself.
 """
 
 from __future__ import annotations
@@ -90,9 +105,9 @@ class OcrConfig:
     compute_dtype: str = "bfloat16"  # conv compute dtype; params stay float32
     param_dtype: str = "float32"
     upload_bits: int = 4             # 4 = Bayer-dithered 16-level luma
-    fetch_bytes: bool = True         # TPU link transport: ignored
-    fetch_max_tokens: int = 48       # TPU link transport: ignored
-    det_fetch_candidates: int = 64   # TPU link transport: ignored
+    fetch_bytes: bool = True         # uint8 payload rows (ops.bytepack)
+    fetch_max_tokens: int = 48       # token columns a line fetched first
+    det_fetch_candidates: int = 64   # candidate slots a page fetched first
 
     def replace(self, **kw) -> "OcrConfig":
         return dataclasses.replace(self, **kw)

@@ -3,19 +3,26 @@ lines -> separable warp (or the exact homography warp), ink refine, re-warp
 -> [dewarp] -> [orientation stage] -> CRNN -> greedy or beam CTC, on the
 device, for a chunk of pages at a time (port of ocrjax/fused.py).
 
-The reference compiles this as one XLA program and packs its outputs into
-one byte row for a slow host link; here `FusedOcr` is a plain function over
-device tensors that returns them as tensors. ocr_pages_fused redoes, as the
-reference does, the pages this lane cannot answer: a colour page on the
-staged lane over min-channel luma, tilted pages and pages that saturate the
-line capacity on the bucketed lane, and downscaled ones of those on the
-full-resolution lane. With rec_try_flip a page whose lines mostly flipped
-reads in reversed order, and a landscape scan reroutes to the staged lane,
-whose 90-degree redo rotates it.
+The reference compiles this as one XLA program; here `FusedOcr` is a plain
+function over device tensors. Both end the same way: every output of a
+page packed into one row (uint8 under cfg.fetch_bytes, ops.bytepack;
+unpack_fused reads it), so the host makes one copy a chunk. The host side
+is the reference's pipeline: chunk k + 1 decodes on a lookahead thread
+while chunk k is dispatched, each chunk's copy to the host (its first
+fetch_max_tokens token columns a line) starts right after its dispatch,
+and a chunk with a longer line is refetched whole.
+
+ocr_pages_fused redoes, as the reference does, the pages this lane cannot
+answer: a colour page on the staged lane over min-channel luma, tilted
+pages and pages that saturate the line capacity on the bucketed lane, and
+downscaled ones of those on the full-resolution lane. With rec_try_flip a
+page whose lines mostly flipped reads in reversed order, and a landscape
+scan reroutes to the staged lane, whose 90-degree redo rotates it.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 from typing import Dict, List
 
 import numpy as np
@@ -23,10 +30,12 @@ import torch
 
 from ocrjax_torch import geometry, preprocess
 from ocrjax_torch.models import db_int8
+from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
-from ocrjax_torch.utils.profiling import stage
+from ocrjax_torch.utils.profiling import add_bytes, stage
+
 
 def top_k(score: torch.Tensor, k: int):
     """(values, indices) of the k largest along the last dim; ties go to
@@ -58,9 +67,13 @@ class FusedOcr:
         """gray_up: (B, S, S/2) packed nibbles (upload_bits 4) or (B, S, S)
         uint8 luma; thr: (det_thresh, box_thresh, unclip_ratio,
         min_box_size); valid_wh: (B, 2) float32 valid page (w, h) on the
-        canvas. Returns tokens (B, K, T), n_tokens (B, K), conf (B, K),
-        quads (B, K, 4, 2) canvas px, scores (B, K), valid (B, K), flipped
-        (B, K)."""
+        canvas. Returns one packed row a page (unpack_fused): tokens (B,
+        K, T), n_tokens (B, K), valid (B, K), [flipped (B, K),] conf (B,
+        K), quads (B, K, 4, 2) canvas px, scores (B, K) as
+        (B, K * (T + 42)) uint8, one more K columns under rec_try_flip,
+        with cfg.fetch_bytes; else tokens, n_tokens, conf, quads,
+        scores, valid, [flipped] as (B, K * (T + 12)) float32, one more
+        K with rec_try_flip."""
         from ocrjax_torch.api_det import _cls_flip_strips, crnn_decode
         cfg, eng, K = self.cfg, self.engine, self.K
         H = cfg.rec_height
@@ -132,11 +145,61 @@ class FusedOcr:
         else:
             flip = torch.zeros(B * K, dtype=torch.bool, device=strips.device)
         tokens, n_tokens, conf = crnn_decode(eng, strips, widths, self.beam)
-        return {"tokens": tokens.reshape(B, K, -1),
-                "n_tokens": n_tokens.reshape(B, K),
-                "conf": conf.reshape(B, K), "quads": quads,
-                "scores": top_s, "valid": line_valid,
-                "flipped": flip.reshape(B, K)}
+        T = cfg.rec_max_tokens
+        tokens = tokens.reshape(B, K * T)
+        n_tokens, conf, flip = (t.reshape(B, K) for t in (n_tokens, conf,
+                                                          flip))
+        quads = quads.reshape(B, K * 8)
+        if bytepack.use_byte_fetch(eng):
+            u8 = torch.uint8
+            parts = [tokens.to(u8), n_tokens.to(u8), line_valid.to(u8)]
+            if cfg.rec_try_flip:
+                parts.append(flip.to(u8))
+            parts += [bytepack.f32_to_bytes(conf),
+                      bytepack.f32_to_bytes(quads),
+                      bytepack.f32_to_bytes(top_s)]
+            return torch.cat(parts, dim=1)
+        parts = [tokens, n_tokens, conf, quads, top_s, line_valid]
+        if cfg.rec_try_flip:
+            parts.append(flip)
+        return torch.cat([t.float() for t in parts], dim=1)
+
+
+def unpack_fused(payload: np.ndarray, K: int, max_tokens: int,
+                 try_flip: bool = False) -> Dict[str, np.ndarray]:
+    """Host side inverse of FusedOcr's packed rows (the byte layout for a
+    uint8 payload, the float32 one otherwise) -> tokens (B, K, T) int32,
+    n_tokens (B, K) int32, conf (B, K), quads (B, K, 4, 2), scores (B, K),
+    valid (B, K), flipped (B, K). try_flip must be the rec_try_flip the
+    rows were made with (it adds the flip column); max_tokens is the token
+    width of the rows (fetch_max_tokens after truncate_tokens)."""
+    B = payload.shape[0]
+    T = max_tokens
+    o = 0
+
+    def take(n):
+        nonlocal o
+        o += n
+        return payload[:, o - n:o]
+
+    if payload.dtype == np.uint8:
+        out = {"tokens": take(K * T).reshape(B, K, T).astype(np.int32),
+               "n_tokens": take(K).astype(np.int32),
+               "valid": take(K) > 0,
+               "flipped": (take(K) > 0 if try_flip
+                           else np.zeros((B, K), bool))}
+        out["conf"] = bytepack.bytes_to_f32(take(K * 4))
+        out["quads"] = bytepack.bytes_to_f32(take(K * 32)).reshape(B, K, 4, 2)
+        out["scores"] = bytepack.bytes_to_f32(take(K * 4))
+        return out
+    return {"tokens": take(K * T).reshape(B, K, T).astype(np.int32),
+            "n_tokens": take(K).astype(np.int32),
+            "conf": take(K),
+            "quads": take(K * 8).reshape(B, K, 4, 2),
+            "scores": take(K),
+            "valid": take(K) > 0.5,
+            "flipped": (take(K) > 0.5 if try_flip
+                        else np.zeros((B, K), bool))}
 
 
 def should_reroute_rotation(vq: np.ndarray, cfg) -> bool:
@@ -179,8 +242,18 @@ def _fused_for(engine, K: int, W: int, beam: bool,
     return engine._fused_cache[key]
 
 
-def _to_host(out: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    return {k: v.cpu().numpy() for k, v in out.items()}
+_prefetch_pool = None
+
+
+def _get_prefetch_pool() -> concurrent.futures.ThreadPoolExecutor:
+    """One lookahead thread for the next chunk's decode, apart from
+    preprocess's decode pool: the chunk task waits on that pool's per-page
+    tasks and must never hold one of its workers."""
+    global _prefetch_pool
+    if _prefetch_pool is None:
+        _prefetch_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ocrjax_torch-chunk-prefetch")
+    return _prefetch_pool
 
 
 def ocr_pages_fused(engine, images, lines_per_page: int = None,
@@ -188,7 +261,16 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
                     separable_warp: bool = True) -> List["OcrResult"]:
     """Batched page OCR through the fused lane: per-page OcrResult in
     reading order, original image coords. separable_warp=False runs the
-    fused program with the exact homography warp (FusedOcr)."""
+    fused program with the exact homography warp (FusedOcr).
+
+    Host pipeline (the reference's): chunk k + 1 decodes on the lookahead
+    thread while chunk k is packed, uploaded and dispatched
+    (host_decode times only the wait for it); right after each dispatch
+    its rows' first fetch_max_tokens token columns start their copy to
+    the host (fused_dispatch); fused_fetch reads them and refetches the
+    full rows of a chunk where a line has more tokens. A chunk that ran
+    out of device memory at dispatch is redone in halves, up to 3 times,
+    and fetched whole."""
     from ocrjax_torch import api_det, bucketing
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
 
@@ -203,12 +285,18 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
         engine.warn_untrained_cls()
     thr = (float(cfg.det_thresh), float(cfg.det_box_thresh),
            float(cfg.det_unclip_ratio), float(cfg.det_min_box_size))
+    T = cfg.rec_max_tokens
+    T_f = cfg.fetch_max_tokens if 0 < cfg.fetch_max_tokens < T else 0
 
-    def run(packed: np.ndarray, wh: np.ndarray, depth: int = 0):
-        """Dispatch one chunk; on device OOM halve it (up to 3 times)."""
+    def dispatch(packed: np.ndarray, wh: np.ndarray) -> torch.Tensor:
+        return fused(api_det.upload(engine, packed), thr,
+                     api_det.upload(engine, wh))
+
+    def fetch_halving(packed: np.ndarray, wh: np.ndarray,
+                      depth: int = 0) -> np.ndarray:
+        """Dispatch and fetch one chunk whole; on device OOM halve it."""
         try:
-            return fused(api_det.upload(engine, packed), thr,
-                         api_det.upload(engine, wh))
+            return bytepack.fetch(dispatch(packed, wh))
         except torch.cuda.OutOfMemoryError:
             if depth >= 3 or len(packed) <= 1:
                 raise
@@ -216,30 +304,70 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
                        "device OOM: halving fused chunk",
                        chunk_pages=len(packed), depth=depth)
             mid = len(packed) // 2
-            halves = [_to_host(run(packed[:mid], wh[:mid], depth + 1)),
-                      _to_host(run(packed[mid:], wh[mid:], depth + 1))]
-            return {k: torch.from_numpy(np.concatenate([h[k] for h in halves]))
-                    for k in halves[0]}
+            return np.concatenate([
+                fetch_halving(packed[:mid], wh[:mid], depth + 1),
+                fetch_halving(packed[mid:], wh[mid:], depth + 1)])
+
+    def decode(lo: int, hi: int):
+        # the colour reroute's test rides on the decode: 601 luma can wash
+        # saturated ink out, so such pages run the staged lane over
+        # min-channel luma
+        return preprocess.decode_chunk_to_gray(
+            images, range(lo, hi), cfg,
+            color_frac=cfg.fused_color_reroute_frac)
 
     C = max(1, min(cfg.fused_chunk_pages, B))
     scales = np.ones((B,), np.float64)
     valid_hw = np.zeros((B, 2), np.int64)
     ok = np.ones((B,), bool)
     colorful = set()
-    pending = []
-    # every chunk is dispatched before any result is read: the host decode
-    # of chunk k+1 overlaps the device work of chunk k
-    for lo in range(0, B, C):
-        hi = min(lo + C, B)
-        grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], col = \
-            preprocess.decode_chunk_to_gray(
-                images, range(lo, hi), cfg,
-                color_frac=cfg.fused_color_reroute_frac)
-        colorful.update(lo + j for j, c in enumerate(col) if c)
+    bounds = [(lo, min(lo + C, B)) for lo in range(0, B, C)]
+    prefetch = _get_prefetch_pool()
+    pending_decode = prefetch.submit(decode, *bounds[0])
+    outs, copies, inputs = [], [], []
+    for ci, (lo, hi) in enumerate(bounds):
+        with stage("host_decode"):
+            grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], col = \
+                pending_decode.result()
+            colorful.update(lo + j for j, c in enumerate(col) if c)
+        if ci + 1 < len(bounds):
+            pending_decode = prefetch.submit(decode, *bounds[ci + 1])
         wh = valid_hw[lo:hi, ::-1].astype(np.float32).copy()
-        pending.append(run(preprocess.pack_for_upload(grays, cfg), wh))
-    chunks = [_to_host(o) for o in pending]
-    out = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+        with stage("fused_dispatch"):
+            packed = preprocess.pack_for_upload(grays, cfg)
+            try:
+                o = dispatch(packed, wh)
+            except torch.cuda.OutOfMemoryError:
+                o = None               # redone in halves at fetch time
+            # this chunk's copy starts now and rides under the next
+            # chunk's decode wait and dispatch
+            copies.append(None if o is None else bytepack.HostCopy(
+                bytepack.truncate_tokens(o, K, T, T_f) if T_f else o))
+            outs.append(o)
+        inputs.append((packed, wh))
+    chunks = []
+    with stage("fused_fetch"):
+        for o, cp, (packed, wh) in zip(outs, copies, inputs):
+            if o is None:
+                arr, t_eff = fetch_halving(packed, wh), T
+            else:
+                arr, t_eff = cp.result(), T_f or T
+            add_bytes("fused_fetch", arr.nbytes)
+            c = unpack_fused(arr, K, t_eff, cfg.rec_try_flip)
+            if t_eff < T and c["n_tokens"].max(initial=0) > t_eff:
+                full = bytepack.fetch(o)          # a line passed T_f tokens
+                add_bytes("fused_fetch", full.nbytes)
+                bytepack.refetches["fused_fetch"] += 1
+                c = unpack_fused(full, K, T, cfg.rec_try_flip)
+            chunks.append(c)
+    if len(chunks) == 1:
+        out = chunks[0]
+    else:   # token widths differ where a chunk was refetched at T
+        tw = max(c["tokens"].shape[2] for c in chunks)
+        out = {k: np.concatenate([
+            np.pad(c[k], ((0, 0), (0, 0), (0, tw - c[k].shape[2])))
+            if k == "tokens" else c[k] for c in chunks])
+            for k in chunks[0]}
 
     results: List[OcrResult] = []
     reroute: List[int] = []

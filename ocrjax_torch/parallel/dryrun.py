@@ -111,7 +111,7 @@ def _rank(rank: int, n: int, init_file: str, out_file: str) -> None:
         thr = (cfg.det_thresh, cfg.det_box_thresh, cfg.det_unclip_ratio,
                float(cfg.det_min_box_size))
         out = fused(grays, thr, np.full((n, 2), float(S), np.float32))
-        payload = tuple(out["tokens"].shape)
+        payload = tuple(out.shape)
         assert payload[0] == n
 
         # one dp step each of the det and cls trainers

@@ -376,10 +376,11 @@ def make_sharded_fused_ocr_fn(engine, mesh: DeviceMesh,
                               bucket_width: int = 320, beam: bool = False):
     """The fused page program (fused.FusedOcr) over the mesh: every rank
     passes the whole batch, runs its dp slice of the pages with the
-    engine's (replicated) models, and gets every page's outputs back by
-    an all-gather. fn(gray_up (B, S, S/2) packed or (B, S, S) luma, thr,
-    valid_wh (B, 2)) -> FusedOcr's dict for all B pages. B must be a
-    multiple of the dp size."""
+    engine's (replicated) models, and gets every page's packed row back by
+    one all-gather. fn(gray_up (B, S, S/2) packed or (B, S, S) luma, thr,
+    valid_wh (B, 2)) -> FusedOcr's payload for all B pages (uint8 under
+    cfg.fetch_bytes, float32 otherwise; fused.unpack_fused reads either).
+    B must be a multiple of the dp size."""
     from ocrjax_torch import fused as F
     prog = F.FusedOcr(engine, lines_per_page, bucket_width, beam)
     dev = engine.device
@@ -387,8 +388,8 @@ def make_sharded_fused_ocr_fn(engine, mesh: DeviceMesh,
     def fn(gray_up, thr, valid_wh):
         gray_up, valid_wh = (torch.as_tensor(a) for a in (gray_up, valid_wh))
         s = dp_slice(mesh, gray_up.shape[0])
-        out = prog(gray_up[s].to(dev), thr, valid_wh[s].to(dev))
-        return {k: gather_rows(mesh, v) for k, v in out.items()}
+        return gather_rows(mesh, prog(gray_up[s].to(dev), thr,
+                                      valid_wh[s].to(dev)))
     return fn
 
 

@@ -11,10 +11,13 @@ of the dense ceiling).
 The table's totals and calls are the host clock's, the quantity ocrjax's
 timer sums; under it each stage's device milliseconds from CUDA events
 ("not measured" with --cpu), and "unattributed" is the wall time less the
-sum of the host totals. The stage names are the port's own (tile_prep,
-tile_det, ccl, extract_boxes, tile_det_fetch, tile_seam_merge,
-warp_refine, crnn, ctc), not ocrjax's dispatch and fetch names; ccl
-nests inside extract_boxes, so the sum counts it twice. The resident det
+sum of the host totals. The table holds ocrjax's host stages (tile_prep,
+tile_det_dispatch, tile_det_fetch, tile_seam_merge, tile_assign,
+rec_dispatch, rec_fetch_decode, tile_assembly, and tile_host_fallback
+and cls_margins where they run) and, nested inside them, the port's
+device stages (tile_det, extract_boxes with ccl inside it, warp_refine,
+crnn, ctc), so the sum counts the nested time more than once. A stage
+that copied bytes to the host has its MB beside it. The resident det
 forward is tiling's TileForward (prob and boxes) on the first page's
 tiles already on the device, warm, the least of 3 calls (CUDA events on
 the card). The engine runs on the card unless given --cpu.
@@ -78,7 +81,8 @@ def main(argv=None) -> None:
         acc = sum(v["total_ms"] for v in rep.values())
         order = sorted(rep.items(), key=lambda kv: -kv[1]["total_ms"])
         for k, v in order:
-            print(f"  {k:22s} {v['total_ms']:8.1f} ms  x{v['calls']}")
+            mb = f"  {v['mb']:.2f} MB" if "mb" in v else ""
+            print(f"  {k:22s} {v['total_ms']:8.1f} ms  x{v['calls']}{mb}")
         print(f"  {'(sum of stages)':22s} {acc:8.1f} ms  "
               f"(unattributed {dt*1e3-acc:.1f} ms)")
         if not timer.on_card:

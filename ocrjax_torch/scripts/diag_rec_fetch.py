@@ -14,13 +14,13 @@ It mirrors the reference script as it stands, which is older than the
 lane it diagnoses (bucketing.recognize_pooled): every quad takes the
 refined homography warp (the lane sends near-axis-aligned quads to the
 separable warp, bucketing.sep_warp_mask), there is no try-flip, one chunk
-per width bucket and count cap, and the chunks' outputs are concatenated
-and copied to the host once (the lane copies per chunk). The page axis is
-not padded to a power of two: eager PyTorch compiles nothing per shape.
-payload is the bytes of the port's own outputs (tokens, token counts and
-confidences), not the reference's packed rows. The pages are the fused
-bench's (det_max_side canvases, rng seed 0); the engine runs on the card
-unless given --cpu.
+per width bucket and count cap, and the chunks' packed rows
+(api_det.pack_rec, uint8 under cfg.fetch_bytes) are concatenated and
+copied to the host whole (the lane copies the first fetch_max_tokens
+token columns first). payload is the bytes of those rows, as the
+reference's. The page axis is not padded to a power of two: eager PyTorch
+compiles nothing per shape. The pages are the fused bench's (det_max_side
+canvases, rng seed 0); the engine runs on the card unless given --cpu.
 """
 
 from __future__ import annotations
@@ -47,8 +47,10 @@ def main(argv=None) -> None:
     from ocrjax_torch import bucketing, preprocess
     from ocrjax_torch.api import OcrEngine
     from ocrjax_torch.api_det import (_estimate_strip_widths, det_state,
-                                      fetch_det, gray_norm, rec_strips,
+                                      fetch_det, gray_norm, pack_det,
+                                      pack_rec, rec_strips, unpack_rec,
                                       upload)
+    from ocrjax_torch.ops import bytepack
     from ocrjax_torch.ops.warp import (expand_quads_host,
                                        warp_quads_multi_refined)
     from ocrjax_torch.train import synth
@@ -76,8 +78,8 @@ def main(argv=None) -> None:
             preprocess.decode_chunk_to_gray(imgs, range(lo, hi), cfg)
         dev = upload(engine, preprocess.pack_for_upload(grays, cfg))
         chunk_devs.append(dev)
-        cands.append(st.forward(dev)[1])
-    boxes, scores, valid = fetch_det(cands)
+        cands.append(pack_det(st.forward(dev)[1]))
+    boxes, scores, valid = fetch_det(cands, cfg)
     for i in range(B):
         nh, nw = valid_hw[i]
         cx = boxes[i, :, :, 0].mean(axis=1)
@@ -123,10 +125,9 @@ def main(argv=None) -> None:
                 x_margin_keep=cfg.rec_ink_x_margin_keep,
                 pad_value=(0.0 - cfg.rec_mean) / cfg.rec_std,
                 orig_quads=upload(engine, quads[sel]))
-            pending.append((idx, rec_strips(engine, strips, widths,
-                                            beam=False)))
-        pcat = [torch.cat([out[k] for _, out in pending]) for k in range(3)]
-        return pending, pcat
+            pending.append((idx, pack_rec(engine, *rec_strips(
+                engine, strips, widths, beam=False))))
+        return pending, torch.cat([out for _, out in pending])
 
     dispatch()  # warm
     for r in range(args.repeats):
@@ -137,21 +138,22 @@ def main(argv=None) -> None:
         clock(device)
         t_compute = time.perf_counter() - t0
         t0 = time.perf_counter()
-        tokens, n_tokens, conf = (t.cpu().numpy() for t in pcat)
+        phost = bytepack.fetch(pcat)
         t_fetch = time.perf_counter() - t0
         t0 = time.perf_counter()
         off = 0
         texts = []
         for idx, out in pending:
+            rows = phost[off:off + out.shape[0]]
+            off += out.shape[0]
+            tokens, n_tokens, conf = unpack_rec(rows, cfg.rec_max_tokens)
             for k in range(len(idx)):
-                texts.append(engine.charset.decode(
-                    tokens[off + k][: n_tokens[off + k]]))
-            off += out[0].shape[0]
+                texts.append(engine.charset.decode(tokens[k][: n_tokens[k]]))
         t_decode = time.perf_counter() - t0
-        nbytes = tokens.nbytes + n_tokens.nbytes + conf.nbytes
         print(f"run{r}: dispatch={t_dispatch*1e3:.1f}ms "
               f"device_compute={t_compute*1e3:.1f}ms "
-              f"fetch={t_fetch*1e3:.1f}ms payload={nbytes/1e3:.0f}KB "
+              f"fetch={t_fetch*1e3:.1f}ms "
+              f"payload={phost.nbytes/1e3:.0f}KB "
               f"host_decode={t_decode*1e3:.1f}ms "
               f"n_chunks={len(chunks)}", flush=True)
 

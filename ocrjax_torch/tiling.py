@@ -16,6 +16,14 @@ upload and detection are issued before the current window's candidates are
 read, so the card detects while the host merges and recognizes. Under a
 tile mesh (parallel.mesh.shard_tiled_serving) the ranks split each tile
 batch's detection (_dispatch_group).
+
+A tile batch's candidates travel as api_det.pack_det rows and come back
+through api_det.fetch_det's truncated first fetch. Dense tiles overflow
+its prefix every time, so an engine-scoped latch (_det_fetch_adapt)
+switches the stream to whole-row fetches after an overflow and back once
+a fetch is sparse again. Host stages, as the reference names them:
+tile_prep, tile_det_dispatch, tile_det_fetch, tile_seam_merge,
+tile_assign, tile_host_fallback, tile_assembly.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from ocrjax_torch import geometry, preprocess
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
-from ocrjax_torch.utils.profiling import stage
+from ocrjax_torch.utils.profiling import current, stage
 
 
 def axis_plan(total: int, tile: int, overlap: int, quantum: int
@@ -236,44 +244,63 @@ def _dispatch_group(engine, tiles: np.ndarray):
     the data-parallel axis: the stack is padded to a dp multiple with white
     (no-ink) tiles, each rank detects its dp slice, the candidates are
     all-gathered and cut back to the real tiles before the host sees them.
-    Every rank keeps all the uploaded tiles for the recognition crops."""
-    from ocrjax_torch.api_det import upload
+    Every rank keeps all the uploaded tiles for the recognition crops.
+    The candidates come back packed (api_det.pack_det), so a mesh gathers
+    them in one collective."""
+    from ocrjax_torch.api_det import pack_det, upload
     mesh = engine.tile_mesh
     try:
         if mesh is None:
             dev = upload(engine,
                          preprocess.pack_for_upload(tiles, engine.config))
-            return dev, _tile_forward(engine)(dev), tiles
+            return dev, pack_det(_tile_forward(engine)(dev)), tiles
         from ocrjax_torch.parallel import mesh as M
         n = len(tiles)
         pad = (-n) % mesh.size(0)
         arr = tiles if not pad else np.concatenate(
             [tiles, np.full((pad,) + tiles.shape[1:], 255, tiles.dtype)])
         dev = upload(engine, preprocess.pack_for_upload(arr, engine.config))
-        cand = _tile_forward(engine)(dev[M.dp_slice(mesh, len(arr))])
-        return dev[:n], {k: M.gather_rows(mesh, v)[:n]
-                         for k, v in cand.items()}, tiles
+        packed = pack_det(_tile_forward(engine)(
+            dev[M.dp_slice(mesh, len(arr))]))
+        return dev[:n], M.gather_rows(mesh, packed)[:n], tiles
     except torch.cuda.OutOfMemoryError:
         return None, None, tiles
+
+
+def _det_fetch_adapt(engine) -> dict:
+    """The engine's saturation latch for tile candidate fetches (see
+    api_det.fetch_det), shared by every tiled call of the engine."""
+    adapt = getattr(engine, "_det_fetch_adapt", None)
+    if adapt is None:
+        adapt = engine._det_fetch_adapt = {}
+    return adapt
+
+
+def _fetch_det_tiles(engine, packed_chunks):
+    """fetch_det of pack_det rows of tiles, at the tile candidate cap,
+    through the engine's latch; bytes under tile_det_fetch."""
+    from ocrjax_torch.api_det import fetch_det
+    return fetch_det(packed_chunks, _tile_forward(engine).tcfg,
+                     adapt=_det_fetch_adapt(engine), timer=current(),
+                     stage="tile_det_fetch")
 
 
 def _fetch_group(engine, dispatched, depth: int = 0):
     """Copy one dispatched group's candidates to the host -> (uploads,
     boxes, scores, valid). On a device OOM its tiles are redone in halves
     (up to 3 times)."""
-    from ocrjax_torch.api_det import fetch_det
-    dev, cand, tiles = dispatched
+    dev, packed, tiles = dispatched
     try:
-        if cand is None:
+        if packed is None:
             raise torch.cuda.OutOfMemoryError("out of memory at dispatch")
-        return ([dev],) + fetch_det([cand])
+        return ([dev],) + _fetch_det_tiles(engine, [packed])
     except torch.cuda.OutOfMemoryError:
         if depth >= 3 or len(tiles) <= 1:
             raise
         log_fields(get_logger("ocrjax_torch.tiling"), "warning",
                    "device OOM: halving tile batch",
                    tiles=len(tiles), depth=depth)
-        del dev, cand
+        del dev, packed
         mid = len(tiles) // 2
         parts = [_fetch_group(engine, _dispatch_group(engine, t), depth + 1)
                  for t in (tiles[:mid], tiles[mid:])]
@@ -441,8 +468,7 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
     peers, at the end (_allow_rot90 keeps that from recursing)."""
     from ocrjax_torch import bucketing
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
-    from ocrjax_torch.api_det import (_is_landscape, fetch_det, gray_norm,
-                                      reading_order)
+    from ocrjax_torch.api_det import _is_landscape, gray_norm, reading_order
 
     cfg = engine.config
     B = len(images)
@@ -490,28 +516,32 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
         """One detection batch a tile shape across the window's pages ->
         [(spans [(page position, n tiles)], dispatched)], shapes sorted as
         tile_plan sorts a page's corners."""
-        by_shape = {}
-        for pi, (_, _, _, groups) in enumerate(window):
-            for g in groups:
-                by_shape.setdefault(g.shape[1:], []).append((pi, g))
-        disp = []
-        for sh in sorted(by_shape):
-            items = by_shape[sh]
-            tiles = np.concatenate([g for _, g in items]) \
-                if len(items) > 1 else items[0][1]
-            disp.append(([(pi, len(g)) for pi, g in items],
-                         _dispatch_group(engine, tiles)))
-        return disp
+        with stage("tile_det_dispatch"):
+            by_shape = {}
+            for pi, (_, _, _, groups) in enumerate(window):
+                for g in groups:
+                    by_shape.setdefault(g.shape[1:], []).append((pi, g))
+            disp = []
+            for sh in sorted(by_shape):
+                items = by_shape[sh]
+                tiles = np.concatenate([g for _, g in items]) \
+                    if len(items) > 1 else items[0][1]
+                disp.append(([(pi, len(g)) for pi, g in items],
+                             _dispatch_group(engine, tiles)))
+            return disp
 
     def fetch_window(window, disp):
         """Candidates of every group -> (per page (boxes, scores, valid,
         rows of its tiles in the window's pooled stack), uploads in group
-        order). One copy to the host for all groups; on a device OOM the
-        groups are fetched (and halved) one by one."""
+        order). The groups' rows concatenate on the device (their width is
+        the candidate cap's, whatever the tile shape) and come back in one
+        fetch; on a device OOM the groups are fetched (and halved) one by
+        one."""
         got = None
         if all(d[1] is not None for _, d in disp):
             try:
-                b_all, s_all, v_all = fetch_det([d[1] for _, d in disp])
+                b_all, s_all, v_all = _fetch_det_tiles(
+                    engine, [torch.cat([d[1] for _, d in disp])])
                 got, off = [], 0
                 for _, d in disp:
                     n_g = len(d[2])
@@ -569,28 +599,31 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
             continue
 
         tids, tquads, tbounds, prior, refs = [], [], [], [], []
-        for p in win:
-            h, w = p["img"].shape[:2]
-            t_ids, t_quads, t_bounds, pooled_idx, host_idx = \
-                _assign_quads_to_tiles(cfg, p["corners"], p["quads"], h, w)
-            n = len(p["quads"])
-            p.update(host_idx=host_idx, texts=[None] * n, confs=[0.0] * n,
-                     flipped=[False] * n)
-            for k, qi in enumerate(pooled_idx):
-                tids.append(p["rows"][t_ids[k]])
-                tquads.append(t_quads[k])
-                tbounds.append(t_bounds[k])
-                prior.append(p["i"])
-                refs.append((p, qi))
+        with stage("tile_assign"):
+            for p in win:
+                h, w = p["img"].shape[:2]
+                t_ids, t_quads, t_bounds, pooled_idx, host_idx = \
+                    _assign_quads_to_tiles(cfg, p["corners"], p["quads"],
+                                           h, w)
+                n = len(p["quads"])
+                p.update(host_idx=host_idx, texts=[None] * n,
+                         confs=[0.0] * n, flipped=[False] * n)
+                for k, qi in enumerate(pooled_idx):
+                    tids.append(p["rows"][t_ids[k]])
+                    tquads.append(t_quads[k])
+                    tbounds.append(t_bounds[k])
+                    prior.append(p["i"])
+                    refs.append((p, qi))
+            if refs:
+                with torch.inference_mode(), stage("warp_refine"):
+                    # remainder tiles padded to (T, T) so the window's
+                    # tiles stack into one array; the per-quad bounds keep
+                    # every sample inside the real tile
+                    normed = [gray_norm(engine, d) for d in devs]
+                    gray_dev = torch.cat([
+                        F.pad(g, (0, T - g.shape[2], 0, T - g.shape[1]))
+                        for g in normed])
         if refs:
-            with torch.inference_mode(), stage("warp_refine"):
-                # remainder tiles padded to (T, T) so the window's tiles
-                # stack into one array; the per-quad bounds keep every
-                # sample inside the real tile
-                normed = [gray_norm(engine, d) for d in devs]
-                gray_dev = torch.cat([
-                    F.pad(g, (0, T - g.shape[2], 0, T - g.shape[1]))
-                    for g in normed])
             texts, confs, flips = bucketing.recognize_pooled(
                 engine, gray_dev, np.asarray(tids, np.int32),
                 np.asarray(tquads, np.float32),
@@ -603,20 +636,22 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
 
         for p in win:
             if p["host_idx"]:
-                rs = engine.recognize_strips(
-                    _host_fallback_strips(engine, p["img"], p["quads"],
-                                          p["host_idx"]),
-                    beam=beam, same_page=True)
-                for k, qi in enumerate(p["host_idx"]):
-                    p["texts"][qi] = rs[k].text
-                    p["confs"][qi] = rs[k].confidence
-                    p["flipped"][qi] = rs[k].flipped
-            quads, ss = p["quads"], p["ss"]
-            results[p["i"]] = OcrResult(lines=[
-                OcrLine(box=DetBox(quads[k], ss[k]), text=p["texts"][k],
-                        confidence=p["confs"][k])
-                for k in reading_order(quads, p["flipped"])],
-                truncated=p["saturated"])
+                with stage("tile_host_fallback"):
+                    rs = engine.recognize_strips(
+                        _host_fallback_strips(engine, p["img"], p["quads"],
+                                              p["host_idx"]),
+                        beam=beam, same_page=True)
+                    for k, qi in enumerate(p["host_idx"]):
+                        p["texts"][qi] = rs[k].text
+                        p["confs"][qi] = rs[k].confidence
+                        p["flipped"][qi] = rs[k].flipped
+            with stage("tile_assembly"):
+                quads, ss = p["quads"], p["ss"]
+                results[p["i"]] = OcrResult(lines=[
+                    OcrLine(box=DetBox(quads[k], ss[k]),
+                            text=p["texts"][k], confidence=p["confs"][k])
+                    for k in reading_order(quads, p["flipped"])],
+                    truncated=p["saturated"])
 
     if rot90_pages:
         redo = ocr_tiled_batch(

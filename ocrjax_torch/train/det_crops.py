@@ -38,7 +38,8 @@ def generate_det_crops(engine, n_pages: int = 256, seed: int = 17,
     Crops whose strip width hits the bucket cap are dropped (their text
     would be truncated). max_rotation: per-line rotation range (degrees)
     of the rendered pages, which the homography warp rectifies."""
-    from ocrjax_torch.api_det import det_state, fetch_det, upload
+    from ocrjax_torch.api_det import det_state, pack_det, unpack_det, upload
+    from ocrjax_torch.ops import bytepack
     from ocrjax_torch.ops.warp import (expand_quads_host,
                                        warp_quads_multi_refined)
 
@@ -61,7 +62,9 @@ def generate_det_crops(engine, n_pages: int = 256, seed: int = 17,
 
         _, cand = st.forward(upload(engine,
                                     preprocess.pack_for_upload(grays, cfg)))
-        boxes, _, valid = fetch_det([cand])
+        # the whole candidate rows, as the reference fetches them here
+        boxes, _, valid = unpack_det(bytepack.fetch(pack_det(cand)),
+                                     cfg.det_max_candidates)
 
         page_ids, qs, labels = [], [], []
         for i in range(B):

@@ -9,7 +9,9 @@ pair of CUDA events on the current stream. `report()` synchronizes once
 and sums the elapsed device time per stage name, `host_report()` the host
 time (for host stages such as the tile plan or the seam merge, where
 device time means nothing) and, with calls=True, ocrjax's report: total,
-calls and mean per stage. Stages may nest (the CCL inside box extraction).
+calls and mean per stage, and "mb" where add_bytes gave the stage bytes
+(the fetch stages count what they copied to the host). Stages may nest
+(the CCL inside box extraction).
 """
 
 from __future__ import annotations
@@ -46,6 +48,13 @@ class StageTimer:
             defaultdict(list)
         self.host: Dict[str, float] = defaultdict(float)
         self.calls: Dict[str, int] = defaultdict(int)
+        self.bytes: Dict[str, int] = defaultdict(int)
+
+    def add_bytes(self, name: str, nbytes: int) -> None:
+        """Attribute bytes moved between host and card to a stage: a slow
+        window that fetched few MB waited on something else than its
+        payload."""
+        self.bytes[name] += int(nbytes)
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
@@ -85,14 +94,20 @@ class StageTimer:
     def host_report(self, calls: bool = False) -> Dict:
         """Total host milliseconds per stage; with calls, ocrjax's report
         instead: per stage, in name order, {"total_ms", "calls",
-        "mean_ms"} rounded to 0.01 ms."""
+        "mean_ms"} rounded to 0.01 ms, and "mb" (MiB, to 0.01) for a stage
+        with bytes."""
         if not calls:
             return dict(self.host)
-        return {name: {"total_ms": round(self.host[name], 2),
-                       "calls": self.calls[name],
-                       "mean_ms": round(self.host[name]
-                                        / max(self.calls[name], 1), 2)}
-                for name in sorted(self.host)}
+        out = {}
+        for name in sorted(self.host):
+            entry = {"total_ms": round(self.host[name], 2),
+                     "calls": self.calls[name],
+                     "mean_ms": round(self.host[name]
+                                      / max(self.calls[name], 1), 2)}
+            if name in self.bytes:
+                entry["mb"] = round(self.bytes[name] / 2**20, 2)
+            out[name] = entry
+        return out
 
 
 @contextlib.contextmanager
@@ -102,6 +117,17 @@ def stage(name: str) -> Iterator[None]:
     else:
         with _active.stage(name):
             yield
+
+
+def current() -> Optional[StageTimer]:
+    """The active timer, None when there is none."""
+    return _active
+
+
+def add_bytes(name: str, nbytes: int) -> None:
+    """The active timer's add_bytes; nothing without an active timer."""
+    if _active is not None:
+        _active.add_bytes(name, nbytes)
 
 
 @contextlib.contextmanager

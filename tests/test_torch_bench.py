@@ -2,11 +2,15 @@
 its roofline counter against hand-counted FLOPs, and `cli bench`.
 
 run_bench: 2 pages at 512, 8 strips, one 768x512 dense page of 40 lines,
-repeats=1. Its report carries every key of ocrjax's run_bench report but
-the link fields (link_probe), every number finite and positive, and every
-stage time "not measured" (no card). The traffic is the reference bench's,
-rendered by the same seeds and order as ocrjax's run_bench: held here
-against ocrjax.train.synth directly.
+repeats=1, no extension windows (extension_budget_s=0: on a loaded host
+the CPU's windows may fall below 0.4x its ceiling, and the extension would
+sample windows 20 s apart for minutes). Its report carries every key of
+ocrjax's run_bench report, the link probe and each window's probe and
+fetch fields among them, every number finite and positive, the host
+stages of each lane with their MB, and every device stage time "not
+measured" (no card). The traffic is the reference bench's, rendered by the
+same seeds and order as ocrjax's run_bench: held here against
+ocrjax.train.synth directly.
 """
 
 import contextlib
@@ -29,6 +33,18 @@ from ocrjax_torch.utils import roofline as RL
 from test_torch_fixture import few_torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
 CHARSET = os.path.join(ROOT, "assets", "rec.charset.txt")
 TINY = dict(pages=2, lines=8, det_max_side=512, dense_pages=1,
             dense_size=(768, 512), dense_lines=40)
@@ -52,7 +68,7 @@ def traffic():
 @pytest.fixture(scope="module")
 def report(traffic):
     return bench_lib.run_bench(pages=2, lines=8, repeats=1, cpu=True,
-                               traffic=traffic)
+                               traffic=traffic, extension_budget_s=0)
 
 
 def test_traffic_is_the_reference_bench_traffic(traffic):
@@ -80,13 +96,21 @@ def test_traffic_is_the_reference_bench_traffic(traffic):
 
 
 def test_report_has_the_reference_keys_but_the_link_fields(report):
-    want = reference_keys() - {"link_probe"}
+    """Every key of ocrjax's report, the link fields included: link_probe
+    and each window's probe and fetch fields, under ocrjax's keys."""
+    want = reference_keys()
     assert {"crops_per_sec", "pages_per_sec_device", "dense_pages_per_sec",
-            "roofline", "windows_detail"} <= want
+            "roofline", "windows_detail", "link_probe"} <= want
     assert want <= set(report)
     assert set(report) - want == {"cc_label_launches_by_section"}
-    assert not any("probe" in k or "fetch" in k
-                   for w in report["windows_detail"] for k in w)
+    lp = report["link_probe"]
+    assert set(lp) == {"rtt_ms", "upload_mb_s"} and lp["rtt_ms"] >= 0
+    assert lp["upload_mb_s"] is None or lp["upload_mb_s"] > 0
+    for w in report["windows_detail"]:
+        assert set(w) == {"path", "pages_per_sec", "probe_rtt_ms",
+                          "probe_up_mb_s", "fetch_ms", "fetch_mb"}
+        # MiB to 0.01: two pages' payloads round to 0.0
+        assert w["fetch_ms"] >= 0 and w["fetch_mb"] >= 0
 
 
 def test_report_numbers_are_finite(report):
@@ -100,9 +124,23 @@ def test_report_numbers_are_finite(report):
         report["pages_per_sec_fused_windows"]
         + report["pages_per_sec_bucketed_windows"])
     assert report["dense_gt_lines_per_page"] == 40.0
-    assert report["stages_last_window"] == {
-        "fused": "not measured", "bucketed": "not measured",
-        "dense": "not measured"}
+    stages = report["stages_last_window"]
+    assert set(stages) == {"fused", "bucketed", "dense"}
+    for lane, host in (("fused", ("host_decode", "fused_dispatch",
+                                  "fused_fetch")),
+                       ("bucketed", ("host_decode", "det_dispatch",
+                                     "det_fetch", "warp_norm",
+                                     "rec_dispatch", "rec_fetch_decode")),
+                       ("dense", ("tile_prep", "tile_det_dispatch",
+                                  "tile_det_fetch", "tile_seam_merge",
+                                  "tile_assign", "tile_assembly"))):
+        rep = stages[lane]
+        assert set(rep["device_ms"]) == set(rep["host_ms"])
+        assert set(rep["device_ms"].values()) == {"not measured"}
+        assert set(host) <= set(rep["host_ms"])
+        fetch = {"fused": "fused_fetch", "bucketed": "det_fetch",
+                 "dense": "tile_det_fetch"}[lane]
+        assert rep["host_ms"][fetch]["mb"] >= 0
     roof = report["roofline"]
     assert roof["peak_bf16_tflops"] == 989.0
     assert [s["stage"] for s in roof["stages"]] == [
@@ -137,9 +175,16 @@ def test_cli_bench_prints_one_json(traffic, tmp_path):
     path = str(tmp_path / "traffic.npz")
     np.savez_compressed(path, **traffic)
     out = io.StringIO()
-    with contextlib.redirect_stdout(out):
+    real, seen = bench_lib.run_bench, []
+
+    def run_bench(**kw):          # the CLI passes ocrjax's arguments
+        seen.append(kw)
+        return real(**kw, extension_budget_s=0)
+    with contextlib.redirect_stdout(out), \
+            _patched(bench_lib, "run_bench", run_bench):
         rc = tcli.main(["bench", "--cpu", "--pages", "2", "--lines", "8",
                         "--repeats", "1", "--traffic", path])
+    assert "extension_budget_s" not in seen[0]
     assert rc == 0
     lines = out.getvalue().strip().splitlines()
     assert len(lines) == 1

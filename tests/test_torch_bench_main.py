@@ -1,8 +1,9 @@
 """ocrjax_torch.bench_main's watchdog (as tests/test_bench_watchdog.py holds
 bench.py's): partial windows record the best window; a run that never
 completes a window records an error and exits 3; a finished run exits
-quietly; no record compares with a TPU target (vs_baseline) or carries
-link fields."""
+quietly; no record compares with a TPU target (vs_baseline); the link
+probe that run_bench feeds into the partial metrics rides along, as in
+bench.py's record."""
 
 import json
 import os
@@ -25,7 +26,9 @@ def test_watchdog_partial_windows_records_best(tmp_path):
         from ocrjax_torch import bench_main as b
         b.DETAIL = {str(tmp_path / "none.json")!r}
         b._progress["windows"] = [31.2, 44.8]
-        b._progress["partial"] = {{"crops_per_sec": 6100.0}}
+        b._progress["partial"] = {{
+            "crops_per_sec": 6100.0,
+            "link_probe": {{"rtt_ms": 0.1, "upload_mb_s": None}}}}
         threading.Thread(target=b._watchdog, args=(3.0,),
                          daemon=True).start()
         time.sleep(30)  # a hung run: the watchdog must exit first
@@ -36,7 +39,8 @@ def test_watchdog_partial_windows_records_best(tmp_path):
     assert rec["windows"] == [31.2, 44.8]
     assert rec["crops_per_sec"] == 6100.0
     assert "error" in rec
-    assert "vs_baseline" not in rec and "link_probe" not in rec
+    assert "vs_baseline" not in rec
+    assert rec["link_probe"] == {"rtt_ms": 0.1, "upload_mb_s": None}
     assert "prior_hardware_run" not in rec
 
 

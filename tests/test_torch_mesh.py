@@ -388,7 +388,7 @@ def _serving_sharded(rank, out):
     pages, packed, wh = _serving_inputs(eng)
     mesh = M.make_mesh(n_dp=2)
     fn = M.make_sharded_fused_ocr_fn(eng, mesh, 8, 320)
-    res = {k: v.numpy() for k, v in fn(packed, _thr(eng.config), wh).items()}
+    res = fn(packed, _thr(eng.config), wh).numpy()
     with pytest.raises(ValueError, match="multiple of the dp axis"):
         fn(packed[:3], _thr(eng.config), wh[:3])
     M.shard_tiled_serving(eng, mesh)
@@ -418,9 +418,13 @@ def test_sharded_serving_matches_unsharded(tmp_path):
     pages, packed, wh = _serving_inputs(eng)
     want = fused.FusedOcr(eng, 8, 320)(torch.from_numpy(packed),
                                        _thr(eng.config),
-                                       torch.from_numpy(wh))
-    want = {k: v.numpy() for k, v in want.items()}
-    g = got["fused"]
+                                       torch.from_numpy(wh)).numpy()
+    # one gathered payload: the port's packed rows, read by unpack_fused
+    assert got["fused"].shape == want.shape and \
+        got["fused"].dtype == want.dtype
+    T, flip = eng.config.rec_max_tokens, eng.config.rec_try_flip
+    want = fused.unpack_fused(want, 8, T, flip)
+    g = fused.unpack_fused(got["fused"], 8, T, flip)
     assert set(g) == set(want)
     for k in ("tokens", "n_tokens", "valid", "flipped"):
         np.testing.assert_array_equal(g[k], want[k], err_msg=k)

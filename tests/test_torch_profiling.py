@@ -92,3 +92,29 @@ def test_timer_defaults_to_the_card_only_where_there_is_one():
     assert P.StageTimer().on_card == torch.cuda.is_available()
     assert not P.StageTimer("cpu").on_card
 
+
+
+def test_add_bytes_reports_mb_as_ocrjax():
+    """Bytes given to a stage show as its "mb" (MiB, to 0.01) in the
+    report with calls, as in ocrjax's report; a stage without bytes has
+    no "mb"; the module-level add_bytes feeds the active timer and does
+    nothing without one."""
+    from ocrjax.utils.profiling import StageTimer as JaxTimer
+    ref = JaxTimer()
+    timer = P.StageTimer("cpu")
+    P.add_bytes("fused_fetch", 123)                    # no timer: dropped
+    for stage, add in ((ref.stage, ref.add_bytes), (P.stage, P.add_bytes)):
+        with timer.active():
+            for n in (3 * 2**20, 5 * 2**19 + 7):
+                with stage("fused_fetch"):
+                    add("fused_fetch", n)
+            with stage("host_decode"):
+                pass
+    got = timer.host_report(calls=True)
+    want = ref.report()
+    assert {k: set(v) for k, v in got.items()} == \
+        {k: set(v) for k, v in want.items()}
+    assert got["fused_fetch"]["mb"] == want["fused_fetch"]["mb"] == 5.5
+    assert "mb" not in got["host_decode"]
+    assert timer.bytes["fused_fetch"] == 3 * 2**20 + 5 * 2**19 + 7
+    assert P.current() is None
