@@ -206,8 +206,31 @@ Phases, in order; any failure exits non-zero:
      sharded fused program: one gathered payload, at the goldens bar of
      the unsharded program. Every one of ocrjax's 13 host stage names
      opens in the phase's runs and phase 13's windows.
+  23. compiled programs (ocrjax_torch.graphs: every serving program
+     captured once per static shape as CUDA graphs and replayed, phases
+     0-22 included), on fresh engines after phase 15's deterministic
+     algorithms: (a)+(b) every lane in bf16 (the fused lane on phase 2's
+     pages and 2 more in chunks of 4, in fp32 too; the mixed batch fused
+     and bucketed; staged ocr() on the tilted page; the full-resolution
+     batch; detect; pooled strips; ocr_tiled_batch, detect_tiled and
+     ocr_tiled on the A4 pages; beam, the grouped warp,
+     try-flip, det_int8, dewarp_curl and the case gate) op by op under
+     graphs.eager() and torch.cuda.set_sync_debug_mode("error"), at its
+     first graphed call (the capture) and at a replay under the same
+     check: bit for bit, K1's launches equal on the three runs; (c) three
+     det_unclip_ratio values replaying one set of graphs, each equal to
+     its eager run, and fetch_max_tokens=2 refetching every chunk after
+     the later chunks replayed; (d) torch.profiler's launch calls and
+     device operations of a 16-page fused chunk, the largest pooled
+     recognition chunk and a detector chunk, eager against graphed; (e)
+     host and device stage ms and pages/s of the bench's 16- and 96-page
+     fused and bucketed windows and the A4 tiled batch, eager and graphed
+     in turns; (f) capture ms a key and peak memory eager against graphed
+     (a 16 x 960 fused call in bf16 and in fp32, the C5 batch); (g)
+     graphs.EAGER; the phase within GRAPH_PHASE_MAX_S. The record goes to
+     ocrjax_torch/_build/graphs_phase.json.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
-7-12, 13, 14, 16, 18, 19, 20, 21 and 22; conv_fused: 4 and 19's conv
+7-12, 13, 14, 16, 18, 19, 20, 21, 22 and 23; conv_fused: 4 and 19's conv
 gate); the
 counts are set to 0 just before such a phase, or gate or script, and read
 just after, in all and by path; the lane phases 2, 3, 5-8, 10, 11, 12's
@@ -229,6 +252,7 @@ import ast
 import collections
 import concurrent.futures
 import contextlib
+import gc
 import glob
 import json
 import os
@@ -1324,7 +1348,7 @@ def phase_optin_fp32(counters, pages, lane_fixture) -> tuple:
     import numpy as np
     import torch
     from ocrjax_torch import fused as F
-    from ocrjax_torch import preprocess
+    from ocrjax_torch import graphs, preprocess
     from ocrjax_torch.api import OcrEngine, asset_config
     from ocrjax_torch.api_det import upload
     from ocrjax_torch.models import db_int8
@@ -1359,7 +1383,11 @@ def phase_optin_fp32(counters, pages, lane_fixture) -> tuple:
     own_fold = db_int8.fold_bn
     db_int8.fold_bn = reference_fold(eng8.det_model, fold)
     try:
-        ref8 = int8_lanes()
+        # op by op: the injected fold is a patch of a module function, and
+        # a captured program would keep it (and its host copies) for the
+        # own-fold run that follows
+        with graphs.eager():
+            ref8 = int8_lanes()
     finally:
         db_int8.fold_bn = own_fold
     own8 = int8_lanes()
@@ -4044,6 +4072,370 @@ def transport_async_copy(counters, eng, pages, smi: str) -> tuple:
     return rec, by_path
 
 
+GRAPH_CHUNK = 4                 # pages a fused chunk in 23 (b), (c)
+GRAPH_PHASE_MAX_S = 60.0
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def _launch_counts(fn) -> dict:
+    """torch.profiler over fn(): the device's kernels, copies and sets,
+    and the host's launch calls by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device, host = 0, collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            device += 1
+        elif e.name in LAUNCH_CALLS:
+            host[e.name] += 1
+    return {"device_ops": device, "host_launch_calls": sum(host.values()),
+            "by_call": dict(host)}
+
+
+def _program(eng, name: str):
+    from ocrjax_torch import graphs
+    return next(p for p in graphs.all_programs(eng) if p.name == name)
+
+
+def phase_graphs(counters, smi: str) -> tuple:
+    """Phase 23 (see the module docstring). Returns (K1's launches by path
+    per part, the record)."""
+    import numpy as np
+    import torch
+    from ocrjax_torch import api_det, graphs
+    from ocrjax_torch import fused as F
+    from ocrjax_torch.api import OcrEngine, asset_config
+    from ocrjax_torch.ops import bytepack
+    from ocrjax_torch.ops.cc_label import label_components_cuda as K1
+    from ocrjax_torch.utils.profiling import StageTimer
+    t_phase = time.perf_counter()
+    pages, _ = load_fixture()
+    batch, strips, named, _ = load_lane_fixture()
+    c5, c5_want = load_c5_fixture()
+    c5_batch = [c5[k] for k in c5_want["batch"]]
+    flip_pages, _ = load_flip_fixture()
+    curl_pages, _, _ = load_curl_fixture()
+    # bf16, the shipped dtype, apart from the float32 fused lane
+    cfg16 = asset_config(fused_chunk_pages=GRAPH_CHUNK)
+    caps = collections.defaultdict(list)
+
+    def note_captures(e):
+        for p in graphs.all_programs(e):
+            caps[p.name] += [s["capture_ms"] for s in p.stats().values()]
+
+    failures, record = [], {"card": smi}
+    ccl = {"graphed": {p: 0 for p in K1.launches_by_path}}
+
+    def k1(fn):
+        before = dict(K1.launches_by_path)
+        out = fn()
+        return out, {p: v - before[p] for p, v in K1.launches_by_path.items()}
+
+    def exact(tag, fn):
+        """(a) and (b): fn's results op by op (graphs.eager) under the
+        sync check, at its first graphed call (the capture) and at a
+        replay under the sync check, bit for bit; K1's launches the same
+        on the three runs."""
+        try:
+            with graphs.eager(), graphs.sync_checked():
+                want, n0 = k1(fn)
+            got1, n1 = k1(fn)
+            with graphs.sync_checked():
+                got2, n2 = k1(fn)
+        except RuntimeError as e:             # a sync or a failed capture
+            failures.append(f"{tag}: {type(e).__name__}: {e}")
+            print(f"    {tag}: RAISED {type(e).__name__}: {e}")
+            return None
+        ok = want == got1 == got2
+        if not ok:
+            failures.append(f"{tag}: graphed results differ from eager "
+                            f"(first call {want == got1}, replay "
+                            f"{want == got2})")
+        if not n0 == n1 == n2:
+            failures.append(f"{tag}: K1 launches eager {n0}, first call "
+                            f"{n1}, replay {n2}")
+        for p, v in n2.items():
+            ccl["graphed"][p] += v
+        print(f"    {tag}: bit-identical {ok}; K1 launches eager "
+              f"{sum(n0.values())}, replay {sum(n2.values())}")
+        return want
+
+    lines = _exact_lines
+
+    # (a) + (b), lanes grouped by engine; each engine is dropped after its
+    # lanes (its graphs' pool goes with it)
+    print(f"  (a)+(b) every lane, bf16 (the 18 pages in fp32 too): eager "
+          f"under the sync check, its first graphed call, a replay under "
+          f"the sync check ({smi})")
+    pages18 = pages + pages[:2]          # four chunks of 4 and one of 2
+
+    def lanes16(e):
+        return [
+            ("fused, 18 pages", lambda: lines(e.ocr_batch(
+                pages18, fused=True))),
+            ("fused, mixed batch", lambda: lines(e.ocr_batch(batch,
+                                                            fused=True))),
+            ("bucketed, mixed batch", lambda: lines(e.ocr_batch(batch))),
+            ("staged ocr(tilted)", lambda: lines([api_det.ocr(
+                e, named["tilted"], force_staged=True)])),
+            ("full-resolution batch", lambda: lines(
+                api_det.ocr_fullres_batch(e, [named["big"],
+                                              named["bigtilt"]]))),
+            ("detect", lambda: [_exact_boxes(e.detect(named[k]))
+                                for k in ("tilted", "big")]),
+            ("pooled strips", lambda: [(r.text, r.confidence, r.flipped)
+                                       for r in e.recognize_strips(strips)]),
+            ("beam, fused", lambda: lines(e.ocr_batch(
+                pages[:4], fused=True, beam=True))),
+            ("beam, bucketed", lambda: lines(e.ocr_batch(batch, beam=True))),
+            ("grouped warp, fused", lambda: lines(F.ocr_pages_fused(
+                e, pages[:4], separable_warp=False))),
+        ]
+
+    def lanes_c5(e):
+        return [
+            ("ocr_tiled_batch (C5)", lambda: lines(e.ocr_tiled_batch(
+                c5_batch))),
+            ("detect_tiled (C5)", lambda: _exact_boxes(
+                e.detect_tiled(c5["dense"]))),
+            ("ocr_tiled (C5)", lambda: lines([e.ocr_tiled(c5["sparse"])])),
+        ]
+
+    def fused_bucketed(name, pgs):
+        def make(e):
+            return [(f"{name}, fused", lambda: lines(e.ocr_batch(
+                        pgs, fused=True))),
+                    (f"{name}, bucketed", lambda: lines(e.ocr_batch(pgs)))]
+        return make
+
+    def lanes_flip(e):
+        return fused_bucketed("try-flip", flip_pages)(e) + [
+            ("try-flip, staged", lambda: lines([api_det.ocr(
+                e, p, force_staged=True) for p in flip_pages]))]
+
+    groups = [
+        ({}, lanes16),
+        ({"compute_dtype": "float32"}, lambda e: [
+            ("fused fp32, 18 pages", lambda: lines(e.ocr_batch(
+                pages18, fused=True)))]),
+        ({}, lanes_c5),
+        ({"rec_try_flip": True}, lanes_flip),
+        ({"det_int8": True}, fused_bucketed("det_int8", batch)),
+        ({"rec_dewarp_curl": True}, fused_bucketed("dewarp_curl",
+                                                   curl_pages)),
+        ({"rec_flat_case_gate": True}, fused_bucketed("case gate", batch)),
+    ]
+    reset(counters)
+    n_lanes = 0
+    for over, make in groups:
+        e = OcrEngine.from_pretrained(config=cfg16.replace(**over))
+        for tag, fn in make(e):
+            exact(tag, fn)
+            n_lanes += 1
+        note_captures(e)
+        del e
+        gc.collect()
+    record["lanes"] = n_lanes
+    record["launches_lanes"] = read(counters, "23 lanes",
+                                    ["label_components_cuda"])
+
+    # (c) the traps
+    print("  (c) a threshold sweep, a forced refetch, K1's counters")
+    ec = OcrEngine.from_pretrained(config=cfg16)
+    fused_c = F._fused_for(ec, ec.config.fused_lines_per_page,
+                           ec.config.rec_bucket_for_width(
+                               10 * ec.config.rec_height), False)
+    base = ec.config
+    ec.ocr_batch(pages, fused=True)             # the captures
+    keys0 = set(fused_c.program.stats())
+    replays0 = sum(s["replays"] for s in fused_c.program.stats().values())
+    for ratio in (1.5, 2.0, 0.0):
+        ec.config = base.replace(det_unclip_ratio=ratio)
+        exact(f"det_unclip_ratio {ratio}, fused",
+              lambda: lines(ec.ocr_batch(pages, fused=True)))
+    ec.config = base
+    st = fused_c.program.stats()
+    sweep_replays = sum(s["replays"] for s in st.values()) - replays0
+    if set(st) != keys0 or sweep_replays != 3 * 2 * len(pages) // GRAPH_CHUNK:
+        failures.append(f"23 (c) sweep: keys {len(keys0)} -> {len(st)}, "
+                        f"{sweep_replays} replays")
+    print(f"    the sweep replayed the fused program {sweep_replays} times "
+          f"on {len(st)} keys, none new")
+    ec.config = base.replace(fetch_max_tokens=2)
+    bytepack.refetches.clear()
+    exact("fetch_max_tokens=2, fused", lambda: lines(ec.ocr_batch(
+        pages, fused=True)))
+    n_chunks = len(pages) // GRAPH_CHUNK
+    if bytepack.refetches["fused_fetch"] != 3 * n_chunks:
+        failures.append(f"23 (c) forced refetch: "
+                        f"{bytepack.refetches['fused_fetch']} refetches in "
+                        f"3 runs of {n_chunks} chunks")
+    print(f"    forced refetch: {bytepack.refetches['fused_fetch']} "
+          f"refetches in 3 runs of {n_chunks} chunks, chunk 0's rows "
+          f"read after chunks 1-3 replayed")
+    ec.config = base
+    note_captures(ec)
+    del ec, fused_c
+    gc.collect()
+
+    # (e) host stages, eager against graphed, in turns
+    print(f"  (e) host and device stage ms, eager / graphed in turns "
+          f"(eager, graphed, graphed, eager), bf16 ({smi})")
+    traffic = np.load(os.path.join(TESTDATA, "bench_traffic.npz"))
+    bench_pages = [np.repeat(p[..., None], 3, axis=2)
+                   for p in traffic["pages"]]
+    et = OcrEngine.from_pretrained()
+    eb = OcrEngine.from_pretrained()
+    eb.config = eb.config.replace(
+        fused_lines_per_page=16,
+        det_max_side=int(traffic["pages"].shape[1]))
+    windows = {
+        "fused": lambda: eb.ocr_batch(bench_pages[:16], fused=True),
+        "bucketed": lambda: eb.ocr_batch(bench_pages[:16]),
+        "tiled": lambda: et.ocr_tiled_batch(c5_batch),
+        "fused 96": lambda: eb.ocr_batch(bench_pages, fused=True),
+        "bucketed 96": lambda: eb.ocr_batch(bench_pages),
+    }
+    for fn in windows.values():
+        fn()                                    # captures
+    stage_rows = {}
+    for name, fn in windows.items():
+        runs = {"eager": [], "graphed": []}
+        for route in ("eager", "graphed", "graphed", "eager"):
+            timer = StageTimer()
+            ctx = graphs.eager() if route == "eager" \
+                else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx, timer.active():
+                res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[route].append((len(res) / wall, timer.host_report(),
+                                timer.report()))
+        def mean(vals):
+            vals = list(vals)
+            return statistics.mean(vals) if all(
+                isinstance(v, float) for v in vals) else vals[0]
+        row = {}
+        for route, rs in runs.items():
+            host = {k: mean(r[1].get(k, 0.0) for r in rs) for k in rs[0][1]}
+            dev = {k: mean(r[2].get(k, 0.0) for r in rs) for k in rs[0][2]}
+            row[route] = {"pages_per_s": statistics.mean(r[0] for r in rs),
+                          "host_ms": host, "device_ms": dev}
+        stage_rows[name] = row
+        keys = [k for k in ("fused_dispatch", "fused_fetch", "det_dispatch",
+                            "det_fetch", "rec_dispatch", "rec_fetch_decode",
+                            "tile_det_dispatch", "tile_det_fetch")
+                if k in row["eager"]["host_ms"]]
+        print(f"    {name}: pages/s eager "
+              f"{row['eager']['pages_per_s']:.2f}, graphed "
+              f"{row['graphed']['pages_per_s']:.2f}; host ms "
+              + ", ".join(f"{k} {row['eager']['host_ms'][k]:.2f} / "
+                          f"{row['graphed']['host_ms'].get(k, 0.0):.2f}"
+                          for k in keys)
+              + "; device ms "
+              + ", ".join(f"{k} {row['eager']['device_ms'][k]} / "
+                          f"{row['graphed']['device_ms'].get(k)}"
+                          for k in ("det_forward", "extract_boxes", "ccl",
+                                    "warp_refine", "crnn", "ctc",
+                                    "tile_det")
+                          if k in row["eager"]["device_ms"]))
+    record["stages"] = stage_rows
+
+    # (d) kernels per chunk, eager against graphed, over the static inputs
+    # of a real chunk (the bench's 16-page fused chunk, its largest
+    # pooled recognition chunk, its detector chunk)
+    print(f"  (d) launches a chunk, torch.profiler, bf16 ({smi})")
+    counts = {}
+    for name, arg in (("fused", 0), ("rec_chunk", 2), ("det", 0)):
+        prog = _program(eb, name)
+        entry = max(prog.entries.values(),
+                    key=lambda en: en.static_in[arg].shape[0])
+        args = entry.static_in
+        with graphs.eager():
+            eager = _launch_counts(lambda: prog(*args))
+        graphed = _launch_counts(lambda: prog(*args))
+        counts[name] = {"eager": eager, "graphed": graphed,
+                        "graphs": entry.tape.n_graphs,
+                        "shape": list(args[arg].shape)}
+        print(f"    {name} {list(args[arg].shape)}: eager "
+              f"{eager['host_launch_calls']} launch calls "
+              f"({eager['device_ops']} device ops), graphed "
+              f"{graphed['host_launch_calls']} ({entry.tape.n_graphs} "
+              f"graphs; {graphed['device_ops']} device ops)")
+    record["launches"] = counts
+
+    # (f) capture ms and memory
+    print(f"  (f) capture ms a key (the first call whole: its eager run "
+          f"and the capture), peak memory ({smi})")
+    note_captures(eb)
+    note_captures(et)
+    del eb, et
+    gc.collect()
+    record["capture_ms"] = {
+        n: {"keys": len(v), "median": statistics.median(v), "max": max(v)}
+        for n, v in caps.items()}
+    print("    " + "; ".join(f"{n}: {r['keys']} keys, median "
+                             f"{r['median']:.1f}, max {r['max']:.1f}"
+                             for n, r in record["capture_ms"].items()))
+    mem = {}
+    for tag, make, fn in (
+            ("fused 16 x 960", lambda: OcrEngine.from_pretrained(),
+             lambda e: e.ocr_batch(pages, fused=True)),
+            ("fused 16 x 960 fp32", lambda: OcrEngine.from_pretrained(
+                config=asset_config(compute_dtype="float32")),
+             lambda e: e.ocr_batch(pages, fused=True)),
+            ("C5 batch", lambda: OcrEngine.from_pretrained(),
+             lambda e: e.ocr_tiled_batch(c5_batch))):
+        row = {}
+        for route in ("eager", "graphed"):
+            e = make()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_b = torch.cuda.memory_allocated()
+            ctx = graphs.eager() if route == "eager" \
+                else contextlib.nullcontext()
+            with ctx:
+                fn(e)
+                fn(e)
+            torch.cuda.synchronize()
+            row[route] = {
+                "peak_mib": (torch.cuda.max_memory_allocated() - base_b)
+                / 2**20,
+                "held_mib": (torch.cuda.memory_allocated() - base_b) / 2**20}
+            del e
+            gc.collect()
+        mem[tag] = row
+        print(f"    {tag}: peak {row['eager']['peak_mib']:.0f} MiB eager, "
+              f"{row['graphed']['peak_mib']:.0f} MiB graphed; held after "
+              f"{row['eager']['held_mib']:.0f} / "
+              f"{row['graphed']['held_mib']:.0f} MiB")
+    record["memory"] = mem
+
+    # (g)
+    print(f"  (g) graphs.EAGER: {graphs.EAGER or 'empty'}")
+    record["eager_programs"] = dict(graphs.EAGER)
+    took = time.perf_counter() - t_phase
+    record["seconds"] = took
+    print(f"  phase 23: {took:.1f} s ({smi})")
+    with open(os.path.join(PKG, "_build", "graphs_phase.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    if failures:
+        fail("phase 23: " + "; ".join(failures))
+    if took > GRAPH_PHASE_MAX_S:
+        fail(f"phase 23 took {took:.1f} s, past {GRAPH_PHASE_MAX_S} s")
+    return ccl, record
+
+
 def _fused_inputs(eng, pages) -> tuple:
     """(packed canvases, thresholds, valid (w, h)) of pages for FusedOcr."""
     import numpy as np
@@ -4114,6 +4506,9 @@ def main() -> int:
     phase_lanes_bf16(eng16, fixture, lanes32)
     header("== 7. beam CTC")
     ccl_phases["7"] = phase_beam_fp32(eng32, pages, fixture, counters)
+    # its graphs hold memory of the float32 16-page chunk's size (phase 23
+    # (f) measures it); no later phase uses it
+    del eng32
     beam = phase_beam_bf16(eng16, pages)
     header("== 8. orientation (rec_try_flip)")
     ccl_phases["8"] = phase_flip_fp32(counters)
@@ -4162,6 +4557,10 @@ def main() -> int:
            f"async copy ({smi})")
     transport_ccl, _ = phase_transport(counters, smi, bench, parallel)
     ccl_phases.update(transport_ccl)
+    header(f"== 23. compiled programs: CUDA graphs against the op-by-op "
+           f"route ({smi})")
+    graphs_ccl, _ = phase_graphs(counters, smi)
+    ccl_phases.update({f"23 {k}": v for k, v in graphs_ccl.items()})
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],

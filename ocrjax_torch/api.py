@@ -243,7 +243,14 @@ class OcrEngine:
         the dewarp, seg_ids grouping the strips for its page prior, and the
         flip decisions come back as a fourth tensor. The dewarp comes
         before the orientation stage here, as in the reference's C1
-        programs (the staged lanes flip first)."""
+        programs (the staged lanes flip first). A program keyed per (N,
+        bucket width), whose static outputs the next call of the same
+        shape overwrites."""
+        from ocrjax_torch import graphs
+        return graphs.program(self, "rec_step", OcrEngine._rec_step_run)(
+            self, batch_u8, widths, beam, seg_ids)
+
+    def _rec_step_run(self, batch_u8, widths, beam, seg_ids):
         from ocrjax_torch.api_det import _cls_flip_strips, crnn_decode
         from ocrjax_torch.ops.warp import maybe_dewarp_curl
         cfg = self.config

@@ -29,7 +29,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ocrjax_torch import geometry, preprocess
+from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.models import cls as cls_lib
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.ops import bytepack, ctc
@@ -44,28 +44,58 @@ def upload(engine, a: np.ndarray) -> torch.Tensor:
     non-blocking on a card)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if engine.device.type == "cuda":
-        return t.pin_memory().to(engine.device, non_blocking=True)
+        with graphs.checked():
+            return t.pin_memory().to(engine.device, non_blocking=True)
     return t
+
+
+def upload_thresholds(engine) -> torch.Tensor:
+    """The config's four detection thresholds (det_thresh, det_box_thresh,
+    det_unclip_ratio, det_min_box_size) as one (4,) float32 tensor on the
+    engine's device, a pinned upload: the programs take them as an input,
+    as the reference traces them, so that a threshold sweep replays the
+    same graphs."""
+    cfg = engine.config
+    return upload(engine, np.asarray(
+        [cfg.det_thresh, cfg.det_box_thresh, cfg.det_unclip_ratio,
+         float(cfg.det_min_box_size)], np.float32))
 
 
 class DetState:
     """The staged detector of an engine: DB forward and box extraction over
     a batch of uploaded canvases, on the engine's device. The flagship DB
     is built here, from the config of the detector's first use, and kept
-    (ocrjax's _DetState)."""
+    (ocrjax's _DetState). The forward is one graphs.Program keyed by the
+    canvas batch's shape and the config without its thresholds (which it
+    takes as a tensor); its graphs split at the stages, so the DB forward
+    and the box extraction (before, at and after the CCL) replay as the
+    reference's prob_fn and boxes_fn do. A config change drops them."""
 
     def __init__(self, engine):
         self.engine = engine
         self.model = engine.build_detector("det")
+        self.program = graphs.Program(self._run, "det")
+        self._cfg_key = None
 
-    @torch.inference_mode()
+    def programs(self):
+        return (self.program,)
+
     def forward(self, gray_up: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """gray_up: (B, S, S/2) packed nibbles (upload_bits 4) or (B, S, S)
         uint8 luma, as preprocess.pack_for_upload makes them. Returns
         (prob (B, S', S'), candidates {'boxes' (B, C, 4, 2) canvas px,
-        'scores' (B, C), 'valid' (B, C)}) as device tensors."""
-        cfg = self.engine.config
+        'scores' (B, C), 'valid' (B, C)}) as device tensors; on the card
+        the program's static outputs, which the next call of the same shape
+        overwrites."""
+        key = graphs.config_key(self.engine.config)
+        if key != self._cfg_key:
+            self.program.clear()
+            self._cfg_key = key
+        return self.program(gray_up, upload_thresholds(self.engine), key)
+
+    @torch.inference_mode()
+    def _run(self, gray_up: torch.Tensor, thr: torch.Tensor, cfg):
         with stage("det_forward"):
             gray_u8 = preprocess.unpack_on_device(gray_up, cfg)
             x = preprocess.det_normalize_gray(gray_u8, cfg.det_mean,
@@ -73,10 +103,7 @@ class DetState:
             prob = db_int8.apply_prob(self.model, x, cfg.det_int8)
         with stage("extract_boxes"):
             cand = db_boxes.extract_boxes(
-                prob, thresh=float(cfg.det_thresh),
-                box_thresh=float(cfg.det_box_thresh),
-                unclip_ratio=float(cfg.det_unclip_ratio),
-                min_box_size=float(cfg.det_min_box_size),
+                prob, thresholds=thr,
                 **db_boxes.static_kwargs_from_config(cfg))
         return prob, cand
 
@@ -121,6 +148,11 @@ def truncate_det(packed: torch.Tensor, C: int, Kf: int) -> torch.Tensor:
                       n_need], dim=1)
 
 
+# truncate_det's graphs (the reference's _truncate_det_jit), held by the
+# module: no engine is at hand where the candidates are fetched
+truncate_det_program = graphs.Program(truncate_det, "truncate_det")
+
+
 def fetch_det(packed_chunks: Sequence[torch.Tensor], cfg, C: int = None,
               adapt: dict = None, timer: StageTimer = None,
               stage: str = "det_fetch"):
@@ -155,7 +187,7 @@ def fetch_det(packed_chunks: Sequence[torch.Tensor], cfg, C: int = None,
             if cols.max(initial=-1) + 1 <= Kf // 2:
                 adapt["full"] = False      # the stream went sparse again
         return out
-    copies = [bytepack.HostCopy(truncate_det(p, C, Kf))
+    copies = [bytepack.HostCopy(truncate_det_program(p, C, Kf))
               for p in packed_chunks]
     bs, ss, vs = [], [], []
     for cp, p in zip(copies, packed_chunks):
@@ -218,13 +250,19 @@ def detect(engine, image) -> List["DetBox"]:
     return [DetBox(quads[i], float(ss[i])) for i in order]
 
 
-def gray_norm(engine, canvas_dev: torch.Tensor) -> torch.Tensor:
-    """Uploaded (packed) luma canvases -> (B, S, S) float32 pages normalized
-    for the warps."""
+def _gray_norm(engine, canvas_dev: torch.Tensor) -> torch.Tensor:
     cfg = engine.config
     return preprocess.gray_normalize(
         preprocess.unpack_on_device(canvas_dev, cfg), cfg.rec_mean,
         cfg.rec_std)
+
+
+def gray_norm(engine, canvas_dev: torch.Tensor) -> torch.Tensor:
+    """Uploaded (packed) luma canvases -> (B, S, S) float32 pages normalized
+    for the warps; a program (the reference's _gray_norm_jit), whose static
+    output the next call of the same shape overwrites."""
+    return graphs.program(engine, "gray_norm", _gray_norm)(engine,
+                                                          canvas_dev)
 
 
 def decode(engine, logits: torch.Tensor, frame_lengths: torch.Tensor,
@@ -253,14 +291,22 @@ def crnn_decode(engine, strips: torch.Tensor, widths: torch.Tensor,
 
 
 @torch.inference_mode()
+def _rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
+                beam: bool = False):
+    strips = warp_lib.maybe_dewarp_curl(strips, widths, engine.config)
+    return crnn_decode(engine, strips, widths, beam)
+
+
 def rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
                beam: bool = False):
     """Recognition of normalized device strips (N, H, W) with their widths,
     the staged and pooled lanes' order: dewarp (rec_dewarp_curl), CRNN,
     CTC -> (tokens (N, T), n_tokens (N,), conf (N,)) device tensors. The
-    crops should already be ink-refined (ops.warp two-pass warps)."""
-    strips = warp_lib.maybe_dewarp_curl(strips, widths, engine.config)
-    return crnn_decode(engine, strips, widths, beam)
+    crops should already be ink-refined (ops.warp two-pass warps). A
+    program keyed per (N, bucket width) (the reference's _rec_strips_jit);
+    inside another program it runs as part of that one."""
+    return graphs.program(engine, "rec_strips", _rec_strips)(
+        engine, strips, widths, beam)
 
 
 def pack_rec(engine, tokens: torch.Tensor, n_tokens: torch.Tensor,
@@ -382,6 +428,22 @@ def rec_strips_flip(engine, strips: torch.Tensor, widths: torch.Tensor,
     return (*rec_strips(engine, strips, widths, beam), flipped)
 
 
+def _rec_strips_flip_packed(engine, strips, widths, seg_ids, beam):
+    return pack_rec_flip(engine, *rec_strips_flip(engine, strips, widths,
+                                                  seg_ids, beam))
+
+
+def rec_strips_flip_packed(engine, strips: torch.Tensor,
+                           widths: torch.Tensor, seg_ids: torch.Tensor,
+                           beam: bool = False) -> torch.Tensor:
+    """pack_rec_flip of rec_strips_flip as one program (the reference's
+    _rec_strips_flip_packed_jit): the staged lane's try-flip recognition
+    in one fetched row a line."""
+    return graphs.program(engine, "rec_strips_flip_packed",
+                          _rec_strips_flip_packed)(
+        engine, strips, widths, seg_ids, beam)
+
+
 @torch.inference_mode()
 def rec_strips_forced_flip(engine, strips: torch.Tensor,
                            widths: torch.Tensor, flip: torch.Tensor,
@@ -396,12 +458,9 @@ def rec_strips_forced_flip(engine, strips: torch.Tensor,
 
 
 @torch.inference_mode()
-def cls_margins_multi(engine, gray_dev: torch.Tensor,
-                      page_ids: torch.Tensor, quads: torch.Tensor,
-                      bucket_width: int) -> torch.Tensor:
-    """Orientation margins of quads warped off several pages with the plain
-    (un-refined) homography warp: the pooled lane's first phase, whose
-    margins go to the host for the page prior over whole pages."""
+def _cls_margins_multi(engine, gray_dev: torch.Tensor,
+                       page_ids: torch.Tensor, quads: torch.Tensor,
+                       bucket_width: int) -> torch.Tensor:
     cfg = engine.config
     with stage("warp_refine"):
         strips, widths = warp_lib.warp_quads_multi(
@@ -409,6 +468,18 @@ def cls_margins_multi(engine, gray_dev: torch.Tensor,
             bucket_width=bucket_width,
             pad_value=(0.0 - cfg.rec_mean) / cfg.rec_std)
     return _cls_margins(engine, strips, widths)[1]
+
+
+def cls_margins_multi(engine, gray_dev: torch.Tensor,
+                      page_ids: torch.Tensor, quads: torch.Tensor,
+                      bucket_width: int) -> torch.Tensor:
+    """Orientation margins of quads warped off several pages with the plain
+    (un-refined) homography warp: the pooled lane's first phase, whose
+    margins go to the host for the page prior over whole pages. A program
+    (the reference's _cls_margins_multi_jit), whose static output the next
+    call of the same shape overwrites."""
+    return graphs.program(engine, "cls_margins_multi", _cls_margins_multi)(
+        engine, gray_dev, page_ids, quads, bucket_width)
 
 
 def reading_order(quads: Sequence[np.ndarray], flipped) -> List[int]:
@@ -506,42 +577,25 @@ def ocr(engine, image, beam: bool = False, force_staged: bool = False,
         quads_orig_canvas = np.concatenate(
             [quads_orig_canvas, np.tile(quads_orig_canvas[-1:], (pad, 1, 1))])
 
-    with torch.inference_mode():
-        pad_v = (0.0 - cfg.rec_mean) / cfg.rec_std
-        with stage("warp_refine"):
-            gray = gray_norm(engine, canvas_dev)[0]
-            q_dev = upload(engine, quads_canvas.astype(np.float32))
-            if cfg.rec_snap_to_ink:
-                strips, widths = warp_lib.warp_quads_refined(
-                    gray, q_dev, upload(engine, page_bounds),
-                    rec_height=cfg.rec_height, bucket_width=bucket_w,
-                    ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
-                    margin_fracs=(cfg.rec_crop_margin, cfg.rec_crop_margin),
-                    x_margin_keep=cfg.rec_ink_x_margin_keep,
-                    pad_value=pad_v,
-                    orig_quads=upload(
-                        engine, quads_orig_canvas.astype(np.float32)),
-                    flat_frac=cfg.rec_flat_band_frac,
-                    case_gate=cfg.rec_flat_case_gate)
-            else:
-                strips, widths = warp_lib.warp_quads(
-                    gray, q_dev, rec_height=cfg.rec_height,
-                    bucket_width=bucket_w, pad_value=pad_v)
-        if cfg.rec_try_flip:
-            # the page's lines share one prior group; each pad row (a copy
-            # of the last quad) votes alone
-            engine.warn_untrained_cls()
-            seg = np.concatenate([np.zeros(n, np.int64),
-                                  np.arange(1, nb - n + 1)])
-            tokens, n_tokens, conf, flips = unpack_rec_flip(
-                bytepack.fetch(pack_rec_flip(engine, *rec_strips_flip(
-                    engine, strips, widths, upload(engine, seg), beam))),
-                cfg.rec_max_tokens)
-            flips = flips[:n]
-        else:
-            out = rec_strips(engine, strips, widths, beam)
-            tokens, n_tokens, conf = (t.cpu().numpy() for t in out)
-            flips = []
+    strips, widths = staged_warp(
+        engine, canvas_dev, upload(engine, quads_canvas.astype(np.float32)),
+        upload(engine, page_bounds),
+        upload(engine, quads_orig_canvas.astype(np.float32)), bucket_w)
+    if cfg.rec_try_flip:
+        # the page's lines share one prior group; each pad row (a copy of
+        # the last quad) votes alone
+        engine.warn_untrained_cls()
+        seg = np.concatenate([np.zeros(n, np.int64),
+                              np.arange(1, nb - n + 1)])
+        tokens, n_tokens, conf, flips = unpack_rec_flip(
+            bytepack.fetch(rec_strips_flip_packed(
+                engine, strips, widths, upload(engine, seg), beam)),
+            cfg.rec_max_tokens)
+        flips = flips[:n]
+    else:
+        out = rec_strips(engine, strips, widths, beam)
+        tokens, n_tokens, conf = (t.cpu().numpy() for t in out)
+        flips = []
 
     quads_orig = [geometry.scale_quads(boxes[i], scale) for i in idx]
     lines = []
@@ -551,6 +605,40 @@ def ocr(engine, image, beam: bool = False, force_staged: bool = False,
             text=engine.charset.decode(tokens[k][: n_tokens[k]]),
             confidence=float(conf[k])))
     return OcrResult(lines=lines)
+
+
+@torch.inference_mode()
+def _staged_warp(engine, canvas_dev: torch.Tensor, q_dev: torch.Tensor,
+                 bounds: torch.Tensor, orig_quads: torch.Tensor,
+                 bucket_w: int):
+    cfg = engine.config
+    pad_v = (0.0 - cfg.rec_mean) / cfg.rec_std
+    with stage("warp_refine"):
+        gray = _gray_norm(engine, canvas_dev)[0]
+        if cfg.rec_snap_to_ink:
+            return warp_lib.warp_quads_refined(
+                gray, q_dev, bounds, rec_height=cfg.rec_height,
+                bucket_width=bucket_w,
+                ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
+                margin_fracs=(cfg.rec_crop_margin, cfg.rec_crop_margin),
+                x_margin_keep=cfg.rec_ink_x_margin_keep, pad_value=pad_v,
+                orig_quads=orig_quads, flat_frac=cfg.rec_flat_band_frac,
+                case_gate=cfg.rec_flat_case_gate)
+        return warp_lib.warp_quads(gray, q_dev, rec_height=cfg.rec_height,
+                                   bucket_width=bucket_w, pad_value=pad_v)
+
+
+def staged_warp(engine, canvas_dev: torch.Tensor, q_dev: torch.Tensor,
+                bounds: torch.Tensor, orig_quads: torch.Tensor,
+                bucket_w: int):
+    """The staged lane's crops of one uploaded canvas: normalize, then the
+    exact homography warp with its ink refine and re-warp (or the plain
+    warp without rec_snap_to_ink) of the (n, 4, 2) expanded quads q_dev
+    (orig_quads: the tight ones; bounds: the page's (max x, max y)) ->
+    (strips (n, H, bucket_w), widths (n,)). A program keyed per (n,
+    bucket width), the reference's jitted warps."""
+    return graphs.program(engine, "staged_warp", _staged_warp)(
+        engine, canvas_dev, q_dev, bounds, orig_quads, bucket_w)
 
 
 def _ink_crop_host(gray: np.ndarray, x0: int, y0: int, x1: int, y1: int,

@@ -33,7 +33,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from ocrjax_torch import geometry, preprocess
+from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.utils.profiling import add_bytes, current, stage
@@ -105,9 +105,7 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
     B rotates the chosen strips and recognizes."""
     from ocrjax_torch.api_det import (_estimate_strip_widths,
                                       apply_page_prior, cls_margins_multi,
-                                      pack_rec, pack_rec_flip, rec_strips,
-                                      rec_strips_forced_flip, unpack_rec,
-                                      unpack_rec_flip, upload)
+                                      unpack_rec, unpack_rec_flip, upload)
 
     cfg = engine.config
     warp_src = quads
@@ -145,10 +143,12 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
             pend = []
             for bucket_w, idx, _ in chunks:
                 sel = padded(idx)
+                # a copy: the next chunk of this shape replays over the
+                # program's output before the margins are read
                 pend.append((idx, cls_margins_multi(
                     engine, gray_dev, upload(engine, page_ids[sel].astype(
                         np.int64)), upload(engine, warp_src[sel].astype(
-                            np.float32)), bucket_w)))
+                            np.float32)), bucket_w).clone()))
             # one copy to the host for every chunk's margins
             host = torch.from_numpy(bytepack.fetch(
                 torch.cat([m for _, m in pend])))
@@ -166,48 +166,23 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
                     torch.from_numpy(seg), cfg.cls_page_prior)
             flips_all = (margins > 0).numpy()
 
-    pad_v = (0.0 - cfg.rec_mean) / cfg.rec_std
     tokT = cfg.rec_max_tokens
     t_eff = (cfg.fetch_max_tokens
              if 0 < cfg.fetch_max_tokens < tokT else tokT)
+    program = graphs.program(engine, "rec_chunk", _rec_chunk)
     pending = []
     with stage("rec_dispatch"):
         for bucket_w, idx, sep in chunks:
             sel = padded(idx)
-            ids = upload(engine, page_ids[sel].astype(np.int64))
-            ws = upload(engine, warp_src[sel].astype(np.float32))
-            kw = dict(rec_height=cfg.rec_height, bucket_width=bucket_w,
-                      pad_value=pad_v)
-            if sep:
-                kw["tile_h"] = cfg.pooled_sep_tile_h
-            with stage("warp_refine"):
-                if cfg.rec_snap_to_ink:
-                    refined_warp = (warp_lib.warp_quads_multi_sep_refined
-                                    if sep
-                                    else warp_lib.warp_quads_multi_refined)
-                    strips, widths = refined_warp(
-                        gray_dev, ids, ws, upload(engine, b_all[sel]),
-                        ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
-                        margin_fracs=(cfg.rec_crop_margin,
-                                      cfg.rec_crop_margin),
-                        x_margin_keep=cfg.rec_ink_x_margin_keep,
-                        orig_quads=upload(engine,
-                                          quads[sel].astype(np.float32)),
-                        flat_frac=cfg.rec_flat_band_frac,
-                        case_gate=cfg.rec_flat_case_gate, **kw)
-                elif sep:
-                    strips, widths = warp_lib.warp_quads_multi_separable(
-                        gray_dev, ids, ws, **kw)
-                else:
-                    strips, widths = warp_lib.warp_quads_multi(
-                        gray_dev, ids, ws, **kw)
-            if try_flip:
-                out = pack_rec_flip(engine, *rec_strips_forced_flip(
-                    engine, strips, widths, upload(engine, flips_all[sel]),
-                    beam))
-            else:
-                out = pack_rec(engine, *rec_strips(engine, strips, widths,
-                                                   beam))
+            flips = upload(engine, flips_all[sel]) if try_flip else None
+            # a copy: a later chunk of this shape replays over the
+            # program's output before the rows are concatenated
+            out = program(engine, gray_dev,
+                          upload(engine, page_ids[sel].astype(np.int64)),
+                          upload(engine, warp_src[sel].astype(np.float32)),
+                          upload(engine, b_all[sel]),
+                          upload(engine, quads[sel].astype(np.float32)),
+                          flips, bucket_w, sep, beam).clone()
             pending.append((idx, out))
         # every chunk's rows in one device concat and one copy, the first
         # t_eff token columns a line first (the full concat stays on the
@@ -239,6 +214,75 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
     return texts, confs, [bool(f) for f in flips_all]
 
 
+@torch.inference_mode()
+def _rec_chunk(engine, gray_dev: torch.Tensor, ids: torch.Tensor,
+               ws: torch.Tensor, bounds: torch.Tensor,
+               orig_quads: torch.Tensor, flips, bucket_w: int, sep: bool,
+               beam: bool) -> torch.Tensor:
+    """One pooled recognition chunk on the device: the multi-page warp of
+    the expanded quads ws (separable or homography, with the ink refine
+    and re-warp under rec_snap_to_ink), [the forced flips,] recognition
+    and the packed rows (pack_rec, or pack_rec_flip with flips)."""
+    from ocrjax_torch.api_det import (pack_rec, pack_rec_flip, rec_strips,
+                                      rec_strips_forced_flip)
+    cfg = engine.config
+    kw = dict(rec_height=cfg.rec_height, bucket_width=bucket_w,
+              pad_value=(0.0 - cfg.rec_mean) / cfg.rec_std)
+    if sep:
+        kw["tile_h"] = cfg.pooled_sep_tile_h
+    with stage("warp_refine"):
+        if cfg.rec_snap_to_ink:
+            refined_warp = (warp_lib.warp_quads_multi_sep_refined if sep
+                            else warp_lib.warp_quads_multi_refined)
+            strips, widths = refined_warp(
+                gray_dev, ids, ws, bounds,
+                ink_thresh=(0.5 - cfg.rec_mean) / cfg.rec_std,
+                margin_fracs=(cfg.rec_crop_margin, cfg.rec_crop_margin),
+                x_margin_keep=cfg.rec_ink_x_margin_keep,
+                orig_quads=orig_quads, flat_frac=cfg.rec_flat_band_frac,
+                case_gate=cfg.rec_flat_case_gate, **kw)
+        elif sep:
+            strips, widths = warp_lib.warp_quads_multi_separable(
+                gray_dev, ids, ws, **kw)
+        else:
+            strips, widths = warp_lib.warp_quads_multi(gray_dev, ids, ws,
+                                                       **kw)
+    if flips is not None:
+        return pack_rec_flip(engine, *rec_strips_forced_flip(
+            engine, strips, widths, flips, beam))
+    return pack_rec(engine, *rec_strips(engine, strips, widths, beam))
+
+
+def stack_pages(engine, devs: Sequence[torch.Tensor], size: int = None
+                ) -> torch.Tensor:
+    """The normalized pages of several uploaded chunks (api_det.gray_norm)
+    as one (P, S, S) tensor, each zero-padded at its bottom and right to
+    `size` where given (the tiled lane's remainder tiles). On the card it
+    is the device's shared page buffer (graphs.shared_buffer, P rounded up
+    to a power of two), which every recognition program of the call reads
+    without a copy."""
+    from ocrjax_torch.api_det import gray_norm
+    nib = engine.config.upload_bits == 4      # two pixels a byte
+    shapes = [(d.shape[0], d.shape[1], d.shape[2] * (2 if nib else 1))
+              for d in devs]
+    S_h = size or shapes[0][1]
+    S_w = size or shapes[0][2]
+    n = sum(sh[0] for sh in shapes)
+    out = graphs.shared_buffer("pages", (n, S_h, S_w), torch.float32,
+                               devs[0].device)
+    lo = 0
+    for d, (b, h, w) in zip(devs, shapes):
+        dst = out[lo:lo + b]
+        if (h, w) != (S_h, S_w):
+            dst.zero_()
+            dst = dst[:, :h, :w]
+        # copied at once: the next chunk of this shape replays over
+        # gray_norm's output
+        dst.copy_(gray_norm(engine, d))
+        lo += b
+    return out
+
+
 def ocr_pages(engine, images: Sequence, beam: bool = False,
               _allow_rot90: bool = True) -> List["OcrResult"]:
     """Pooled batched OCR: one OcrResult per input image.
@@ -253,7 +297,7 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
     (_allow_rot90 keeps that redo from recursing)."""
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
     from ocrjax_torch.api_det import (_is_landscape, det_state, fetch_det,
-                                      gray_norm, pack_det,
+                                      pack_det,
                                       pooled_fullres_from_boxes,
                                       reading_order, upload)
     from ocrjax_torch.fused import _get_prefetch_pool
@@ -330,8 +374,7 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
                  - 1.0)[:, None, :]
         with torch.inference_mode(), stage("warp_norm"), \
                 stage("warp_refine"):
-            normed = [gray_norm(engine, d) for d in chunk_devs]
-            gray_dev = torch.cat(normed) if len(normed) > 1 else normed[0]
+            gray_dev = stack_pages(engine, chunk_devs)
         texts, confs, flips = recognize_pooled(
             engine, gray_dev, page_ids, quads, b_all, beam=beam)
         for i in range(B):

@@ -3,8 +3,11 @@ lines -> separable warp (or the exact homography warp), ink refine, re-warp
 -> [dewarp] -> [orientation stage] -> CRNN -> greedy or beam CTC, on the
 device, for a chunk of pages at a time (port of ocrjax/fused.py).
 
-The reference compiles this as one XLA program; here `FusedOcr` is a plain
-function over device tensors. Both end the same way: every output of a
+The reference compiles this as one XLA program; here `FusedOcr` is a
+graphs.Program: captured on the card once per (pages a chunk, canvas
+shape, upload format) as CUDA graphs, one a stage, and replayed from then
+on, with the four detection thresholds a (4,) device tensor so that a
+sweep replays the same graphs. Both end the same way: every output of a
 page packed into one row (uint8 under cfg.fetch_bytes, ops.bytepack;
 unpack_fused reads it), so the host makes one copy a chunk. The host side
 is the reference's pipeline: chunk k + 1 decodes on a lookahead thread
@@ -28,7 +31,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ocrjax_torch import geometry, preprocess
+from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
@@ -60,20 +63,38 @@ class FusedOcr:
         self.W = bucket_width
         self.beam = beam
         self.separable_warp = separable_warp
+        self.program = graphs.Program(self._run, "fused")
 
-    @torch.inference_mode()
+    def programs(self):
+        return (self.program,)
+
     def __call__(self, gray_up: torch.Tensor, thr, valid_wh: torch.Tensor
-                 ) -> Dict[str, torch.Tensor]:
+                 ) -> torch.Tensor:
         """gray_up: (B, S, S/2) packed nibbles (upload_bits 4) or (B, S, S)
         uint8 luma; thr: (det_thresh, box_thresh, unclip_ratio,
-        min_box_size); valid_wh: (B, 2) float32 valid page (w, h) on the
-        canvas. Returns one packed row a page (unpack_fused): tokens (B,
+        min_box_size), a (4,) float32 tensor on the device
+        (api_det.upload_thresholds) or four floats, uploaded here;
+        valid_wh: (B, 2) float32 valid page (w, h) on the
+        canvas. On the card the result is the program's static output,
+        which the next call of the same shape overwrites. Returns one
+        packed row a page (unpack_fused): tokens (B,
         K, T), n_tokens (B, K), valid (B, K), [flipped (B, K),] conf (B,
         K), quads (B, K, 4, 2) canvas px, scores (B, K) as
         (B, K * (T + 42)) uint8, one more K columns under rec_try_flip,
         with cfg.fetch_bytes; else tokens, n_tokens, conf, quads,
         scores, valid, [flipped] as (B, K * (T + 12)) float32, one more
         K with rec_try_flip."""
+        from ocrjax_torch.api_det import det_state, upload
+        if not isinstance(thr, torch.Tensor):
+            thr = upload(self.engine, np.asarray(thr, np.float32))
+        # the detector is built at its first use, its weights copied to
+        # the card: that happens here, not inside the program
+        det_state(self.engine)
+        return self.program(gray_up, thr, valid_wh)
+
+    @torch.inference_mode()
+    def _run(self, gray_up: torch.Tensor, thr: torch.Tensor,
+             valid_wh: torch.Tensor) -> torch.Tensor:
         from ocrjax_torch.api_det import _cls_flip_strips, crnn_decode
         cfg, eng, K = self.cfg, self.engine, self.K
         H = cfg.rec_height
@@ -93,8 +114,7 @@ class FusedOcr:
                         & (ar[None, :, None] < valid_wh[:, 1, None, None]))
             prob = torch.where(in_valid, prob, 0.0)
             cand = db_boxes.extract_boxes(
-                prob, thresh=thr[0], box_thresh=thr[1], unclip_ratio=thr[2],
-                min_box_size=thr[3],
+                prob, thresholds=thr,
                 **db_boxes.static_kwargs_from_config(cfg))
             score = torch.where(cand["valid"], cand["scores"], -1.0)
             top_s, top_i = top_k(score, K)
@@ -138,7 +158,8 @@ class FusedOcr:
             strips = warp_lib.maybe_dewarp_curl(strips, widths, cfg)
         if cfg.rec_try_flip:
             # each page is one prior group; empty slots weigh nothing
-            seg = torch.arange(B, device=strips.device).repeat_interleave(K)
+            seg = torch.arange(B, device=strips.device)[:, None].expand(
+                B, K).reshape(-1)
             strips, flip = _cls_flip_strips(
                 eng, strips, widths, seg_ids=seg,
                 prior_weights=widths * line_valid.reshape(B * K))
@@ -231,11 +252,8 @@ def should_reroute_rotation(vq: np.ndarray, cfg) -> bool:
 def _fused_for(engine, K: int, W: int, beam: bool,
                separable_warp: bool = True) -> FusedOcr:
     """FusedOcr cached per (K, W, beam, warp kind, config without the
-    thresholds)."""
-    cfg = engine.config
-    key = (K, W, beam, separable_warp,
-           cfg.replace(det_thresh=0.0, det_box_thresh=0.0,
-                       det_unclip_ratio=0.0, det_min_box_size=0))
+    thresholds), its graphs with it."""
+    key = (K, W, beam, separable_warp, graphs.config_key(engine.config))
     if key not in engine._fused_cache:
         engine._fused_cache[key] = FusedOcr(engine, K, W, beam,
                                             separable_warp)
@@ -283,14 +301,17 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     fused = _fused_for(engine, K, W, beam, separable_warp)
     if cfg.rec_try_flip:
         engine.warn_untrained_cls()
-    thr = (float(cfg.det_thresh), float(cfg.det_box_thresh),
-           float(cfg.det_unclip_ratio), float(cfg.det_min_box_size))
+    thr = api_det.upload_thresholds(engine)
     T = cfg.rec_max_tokens
     T_f = cfg.fetch_max_tokens if 0 < cfg.fetch_max_tokens < T else 0
+    truncate = graphs.program(engine, "truncate_tokens",
+                              bytepack.truncate_tokens)
 
     def dispatch(packed: np.ndarray, wh: np.ndarray) -> torch.Tensor:
+        # a copy of the program's static output: the next chunk's replay
+        # overwrites that, and a refetch reads this chunk's rows after it
         return fused(api_det.upload(engine, packed), thr,
-                     api_det.upload(engine, wh))
+                     api_det.upload(engine, wh)).clone()
 
     def fetch_halving(packed: np.ndarray, wh: np.ndarray,
                       depth: int = 0) -> np.ndarray:
@@ -342,7 +363,7 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
             # this chunk's copy starts now and rides under the next
             # chunk's decode wait and dispatch
             copies.append(None if o is None else bytepack.HostCopy(
-                bytepack.truncate_tokens(o, K, T, T_f) if T_f else o))
+                truncate(o, K, T, T_f) if T_f else o))
             outs.append(o)
         inputs.append((packed, wh))
     chunks = []

@@ -73,14 +73,15 @@ class HostCopy:
     """A device tensor's copy to the host, started at construction and read
     by result(). On the card: a non-blocking copy into a pinned buffer
     (kept until it is read) and a CUDA event recorded after it on the
-    current stream; result() waits on the event. A CPU tensor is read as
-    it is. A buffer that could not be pinned raises: the copy would be
-    synchronous, and the overlap lost without a sign."""
+    current stream; result() waits on the event. A CPU tensor is copied
+    at construction too (it may be a program's static output, which a
+    later replay overwrites). A buffer that could not be pinned raises: the
+    copy would be synchronous, and the overlap lost without a sign."""
 
     def __init__(self, t: torch.Tensor):
         self.event = None
         if t.device.type != "cuda":
-            self.buf = t
+            self.buf = t.clone()
             return
         self.buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         if not self.buf.is_pinned():

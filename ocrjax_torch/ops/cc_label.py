@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ocrjax_torch import graphs
 from ocrjax_torch.ops import _cuda
 
 BIG = 2 ** 30
@@ -149,7 +150,8 @@ def label_components_cuda(bitmap: torch.Tensor, n_iters: int = 4,
     a path that cannot take the grid raises, and so does a cluster
     configuration of which the card can hold no cluster. Counts each
     launch in `label_components_cuda.launches` and, by path, in
-    `.launches_by_path`."""
+    `.launches_by_path`; a launch inside a captured program
+    (graphs.Program) counts at every replay of its graph."""
     if bitmap.dim() != 3:
         raise ValueError(f"expected a (B, H, W) tensor, got "
                          f"{tuple(bitmap.shape)}")
@@ -181,9 +183,14 @@ def label_components_cuda(bitmap: torch.Tensor, n_iters: int = 4,
     if err != 0:
         raise RuntimeError(f"cc_label kernel launch failed on the {path} "
                            f"path: CUDA error {err}")
+    # inside a captured program, counted at every replay of its graph
+    graphs.launched(_count_launch, path)
+    return out
+
+
+def _count_launch(path: str) -> None:
     label_components_cuda.launches += 1
     label_components_cuda.launches_by_path[path] += 1
-    return out
 
 
 label_components_cuda.launches = 0

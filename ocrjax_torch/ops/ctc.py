@@ -112,7 +112,7 @@ def _beam_step(state, logp: torch.Tensor, t_valid: torch.Tensor, *,
     cand_pnb = torch.cat([stay_pnb, ext_pnb.reshape(B, K * V)], dim=1)
     cand_last = torch.cat([last, char_ids.repeat(K).expand(B, K * V)], dim=1)
     k_ids = torch.arange(K, device=dev)
-    cand_src = torch.cat([k_ids, k_ids.repeat_interleave(V)])
+    cand_src = torch.cat([k_ids, k_ids[:, None].expand(K, V).reshape(-1)])
     cand_ext = torch.cat([torch.zeros(K, dtype=torch.bool, device=dev),
                           torch.ones(K * V, dtype=torch.bool, device=dev)])
 

@@ -38,8 +38,13 @@ def expand_quads(quads: torch.Tensor, frac_y: float, frac_x: float,
     my = (frac_y * h)[..., None, None] * ey[..., None, :]     # (..., 1, 2)
     mx = (frac_x * h)[..., None, None] * ex[..., None, :]
     lead = (1,) * (quads.dim() - 2)
-    sy = quads.new_tensor([-1.0, -1.0, 1.0, 1.0]).reshape(lead + (4, 1))
-    sx = quads.new_tensor([-1.0, 1.0, 1.0, -1.0]).reshape(lead + (4, 1))
+    # the corners' signs made on the device: a tensor made from a list is
+    # a blocking copy
+    c = torch.arange(4, device=quads.device)
+    sy = torch.where(c >= 2, 1.0, -1.0).to(quads.dtype).reshape(
+        lead + (4, 1))
+    sx = torch.where((c == 1) | (c == 2), 1.0, -1.0).to(quads.dtype).reshape(
+        lead + (4, 1))
     out = quads + sy * my + sx * mx
     if bounds is not None:
         out = torch.minimum(torch.clamp(out, min=0.0),
@@ -305,7 +310,9 @@ def solve_homographies(quads: torch.Tensor, heights: torch.Tensor,
     A = torch.stack(rows, dim=1)                              # (N, 8, 8)
     b = torch.stack(rhs, dim=1)                               # (N, 8)
     A = A + 1e-6 * torch.eye(8, dtype=A.dtype, device=A.device)
-    sol = torch.linalg.solve(A, b)
+    # solve_ex: the same solve without its check for a singular A, which
+    # reads the status back to the host (the ridge keeps A regular)
+    sol = torch.linalg.solve_ex(A, b)[0]
     return torch.cat([sol, one[:, None]], dim=1).reshape(-1, 3, 3)
 
 
@@ -400,7 +407,8 @@ def warp_quads_grouped(pages: torch.Tensor, quads: torch.Tensor, *,
     (B, K, 4, 2) -> (strips (B, K, rec_height, bucket_width), widths
     (B, K)). The fused program's exact-homography warp."""
     B, K = quads.shape[:2]
-    ids = torch.arange(B, device=pages.device).repeat_interleave(K)
+    ids = torch.arange(B, device=pages.device)[:, None].expand(
+        B, K).reshape(-1)
     strips, widths = warp_quads_multi(
         pages, ids, quads.reshape(B * K, 4, 2), rec_height=rec_height,
         bucket_width=bucket_width, pad_value=pad_value)
@@ -668,8 +676,8 @@ def dewarp_curl(strips: torch.Tensor, widths: torch.Tensor, *,
         + 1e-3 * torch.eye(3, device=dev)[None]
     b_top = torch.einsum("nwi,nw->ni", phi * vw, top)
     b_bot = torch.einsum("nwi,nw->ni", phi * vw, bot)
-    c_top = torch.linalg.solve(A, b_top[..., None])[..., 0]   # (N, 3)
-    c_bot = torch.linalg.solve(A, b_bot[..., None])[..., 0]
+    c_top = torch.linalg.solve_ex(A, b_top[..., None])[0][..., 0]  # (N, 3)
+    c_bot = torch.linalg.solve_ex(A, b_bot[..., None])[0][..., 0]
     a_top, a_bot = c_top[:, 2], c_bot[:, 2]
     coef = 0.5 * (c_top + c_bot)
 

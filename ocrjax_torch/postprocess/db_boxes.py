@@ -11,7 +11,7 @@ its extents along that axis, unclip, and filter by score and size.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -47,11 +47,19 @@ def extract_boxes(prob: torch.Tensor, *, thresh: float = 0.3,
                   cc_iters: int = 4, cc_downsample: int = 1,
                   coord_stride: int = 1, angle_aniso_floor: float = 0.30,
                   angle_flip_below: float = 0.75,
-                  angle_coherence_min: float = 0.75
+                  angle_coherence_min: float = 0.75,
+                  thresholds: Optional[torch.Tensor] = None
                   ) -> Dict[str, torch.Tensor]:
     """prob (B, H, W) float -> {'boxes' (B, C, 4, 2) float32 TL,TR,BR,BL in
     canvas pixels, 'scores' (B, C) mean prob, 'valid' (B, C) bool}.
-    coord_stride: canvas pixels per prob-map pixel."""
+    coord_stride: canvas pixels per prob-map pixel. thresholds: a (4,)
+    float32 tensor on prob's device, (thresh, box_thresh, unclip_ratio,
+    min_box_size), in place of the four floats: the reference's traced
+    thresholds, so that a captured program takes new values without a
+    new capture; the result is the float call's, bit for bit."""
+    traced = thresholds is not None
+    if traced:
+        thresh, box_thresh, unclip_ratio, min_box_size = thresholds.unbind()
     B, H, W = prob.shape
     C = max_candidates
     dev = prob.device
@@ -190,12 +198,20 @@ def extract_boxes(prob: torch.Tensor, *, thresh: float = 0.3,
     # the training-time shrink
     area = bw * bh
     perim = 2.0 * (bw + bh)
-    if unclip_ratio > 0:
-        delta = area * unclip_ratio / torch.clamp(perim, min=1e-6)
-    else:
+    def ratio_delta():
+        return area * unclip_ratio / torch.clamp(perim, min=1e-6)
+
+    def invert_delta():
         s2 = bw + bh
         disc = (0.32 * s2) ** 2 + 4.0 * 4.64 * 0.84 * area
-        delta = (-0.32 * s2 + torch.sqrt(disc)) / (2.0 * 4.64)
+        return (-0.32 * s2 + torch.sqrt(disc)) / (2.0 * 4.64)
+
+    if traced:      # both computed, each element as the branch gives it
+        delta = torch.where(unclip_ratio > 0, ratio_delta(), invert_delta())
+    elif unclip_ratio > 0:
+        delta = ratio_delta()
+    else:
+        delta = invert_delta()
     umin, umax = umin - delta, umax + delta
     vmin, vmax = vmin - delta, vmax + delta
 
@@ -206,9 +222,11 @@ def extract_boxes(prob: torch.Tensor, *, thresh: float = 0.3,
     boxes = torch.stack([bx, by], dim=-1)                     # (B, C, 4, 2)
     if coord_stride > 1:
         boxes = boxes * coord_stride + 0.5 * (coord_stride - 1)
-    hi = torch.tensor([W * coord_stride - 1, H * coord_stride - 1],
-                      dtype=torch.float32, device=dev)
-    boxes = torch.minimum(torch.clamp(boxes, min=0.0), hi)
+    # each axis clamped with Python bounds (integers float32 holds
+    # exactly): a bound tensor made from a list would be a blocking copy
+    boxes = torch.stack([
+        boxes[..., 0].clamp(0.0, float(W * coord_stride - 1)),
+        boxes[..., 1].clamp(0.0, float(H * coord_stride - 1))], dim=-1)
     return {"boxes": boxes, "scores": score, "valid": valid}
 
 

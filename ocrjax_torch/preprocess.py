@@ -485,20 +485,41 @@ def gray_normalize(gray_u8: torch.Tensor, mean: float, std: float
     return _scale_shift(gray_u8, mean, std)
 
 
+_channel_constants = {}
+
+
+def channel_constants(mean, std, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-channel float32 mean and 1 / std as (1, C, 1, 1) tensors on
+    `device`, made once per values and device (the reference closes over
+    them as program constants). Filled element by element from Python
+    floats: a torch.tensor(list, device=...) is a blocking copy, which
+    would make the host wait for the card in every call."""
+    key = (tuple(float(v) for v in mean), tuple(float(v) for v in std),
+           torch.device(device))
+    got = _channel_constants.get(key)
+    if got is None:
+        m = torch.empty((1, len(key[0]), 1, 1), dtype=torch.float32,
+                        device=device)
+        s = torch.empty_like(m)
+        for i, (mv, sv) in enumerate(zip(*key[:2])):
+            m[0, i].fill_(mv)
+            s[0, i].fill_(sv)
+        got = _channel_constants[key] = (m, 1.0 / s)
+    return got
+
+
 def det_normalize_gray(gray_u8: torch.Tensor, mean, std) -> torch.Tensor:
     """(B, S, S) uint8 luma -> (B, 3, S, S) float32, ImageNet-normalized
     per channel (luma broadcast to RGB)."""
-    m = torch.tensor(mean, dtype=torch.float32, device=gray_u8.device)
-    s = torch.tensor(std, dtype=torch.float32, device=gray_u8.device)
+    m, inv_s = channel_constants(mean, std, gray_u8.device)
     x = gray_u8.float()[:, None] * (1.0 / 255.0)
     # XLA folds the division by a constant into a reciprocal multiply
-    return (x - m[None, :, None, None]) * (1.0 / s)[None, :, None, None]
+    return (x - m) * inv_s
 
 
 def det_normalize(canvas_u8: torch.Tensor, mean, std) -> torch.Tensor:
     """(B, S, S, 3) uint8 RGB -> (B, 3, S, S) float32, ImageNet-normalized
     per channel in det_normalize_gray's arithmetic (the trainers' input)."""
-    m = torch.tensor(mean, dtype=torch.float32, device=canvas_u8.device)
-    s = torch.tensor(std, dtype=torch.float32, device=canvas_u8.device)
+    m, inv_s = channel_constants(mean, std, canvas_u8.device)
     x = canvas_u8.float().permute(0, 3, 1, 2) * (1.0 / 255.0)
-    return (x - m[None, :, None, None]) * (1.0 / s)[None, :, None, None]
+    return (x - m) * inv_s

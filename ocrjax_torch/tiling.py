@@ -33,9 +33,8 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ocrjax_torch import geometry, preprocess
+from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
@@ -179,9 +178,23 @@ class TileForward(torch.nn.Module):
             self.model = engine.det_model
             self.int8 = cfg.det_int8
         self.tcfg = tcfg
+        self.program = graphs.Program(self._run, "tile_forward")
+
+    def programs(self):
+        return (self.program,)
+
+    def forward(self, tiles_up: torch.Tensor):
+        """A program keyed per tile batch shape (the reference's jitted
+        tile forward), its graphs split at the stages: tile_det, then
+        extract_boxes before, at and after the CCL. The thresholds are the
+        config's, closed over as the reference's tile forward closes over
+        them: a config change builds a new TileForward (_tile_forward).
+        On the card the candidates are the program's static outputs,
+        which the next call of the same shape overwrites."""
+        return self.program(tiles_up)
 
     @torch.inference_mode()
-    def forward(self, tiles_up: torch.Tensor):
+    def _run(self, tiles_up: torch.Tensor):
         cfg, tcfg = self.cfg, self.tcfg
         with stage("tile_det"):
             x = preprocess.det_normalize_gray(
@@ -468,7 +481,7 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
     peers, at the end (_allow_rot90 keeps that from recursing)."""
     from ocrjax_torch import bucketing
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
-    from ocrjax_torch.api_det import _is_landscape, gray_norm, reading_order
+    from ocrjax_torch.api_det import _is_landscape, reading_order
 
     cfg = engine.config
     B = len(images)
@@ -619,10 +632,7 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
                     # remainder tiles padded to (T, T) so the window's
                     # tiles stack into one array; the per-quad bounds keep
                     # every sample inside the real tile
-                    normed = [gray_norm(engine, d) for d in devs]
-                    gray_dev = torch.cat([
-                        F.pad(g, (0, T - g.shape[2], 0, T - g.shape[1]))
-                        for g in normed])
+                    gray_dev = bucketing.stack_pages(engine, devs, size=T)
         if refs:
             texts, confs, flips = bucketing.recognize_pooled(
                 engine, gray_dev, np.asarray(tids, np.int32),

@@ -11,13 +11,16 @@ time (for host stages such as the tile plan or the seam merge, where
 device time means nothing) and, with calls=True, ocrjax's report: total,
 calls and mean per stage, and "mb" where add_bytes gave the stage bytes
 (the fetch stages count what they copied to the host). Stages may nest
-(the CCL inside box extraction).
+(the CCL inside box extraction). While a program is captured as CUDA
+graphs (graphs.Program), a stage splits the capture instead, and its
+events are recorded between the replays of the pieces.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Optional, Tuple, Union
@@ -27,6 +30,13 @@ import torch
 NOT_MEASURED = "not measured"
 
 _active: Optional["StageTimer"] = None
+# the capture (graphs._Tape) that a thread is making, if any
+_capture_hook = None
+
+
+def set_capture_hook(tape) -> None:
+    global _capture_hook
+    _capture_hook = tape
 
 
 def _on_card(device: Optional[str]) -> bool:
@@ -112,7 +122,11 @@ class StageTimer:
 
 @contextlib.contextmanager
 def stage(name: str) -> Iterator[None]:
-    if _active is None:
+    hook = _capture_hook
+    if hook is not None and hook.thread == threading.get_ident():
+        with hook.stage(name):
+            yield
+    elif _active is None:
         yield
     else:
         with _active.stage(name):

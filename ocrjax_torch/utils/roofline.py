@@ -41,13 +41,16 @@ def _lstm_flops(input, hx, params, has_biases, num_layers, dropout, train,
 
 def torch_flops(fn, *args) -> float:
     """FLOPs that `fn(*args)` dispatches (matrix products, convolutions and
-    LSTMs). Runs fn once more: call it outside every timed window."""
+    LSTMs). Runs fn once more, op by op (a graph's replay dispatches
+    nothing to count): call it outside every timed window."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from ocrjax_torch import graphs
     lstm = torch.ops.aten.lstm
     # the overload keeps the mode from decomposing the LSTM into ops it
     # does not count; the packet names the formula
     mapping = {lstm: _lstm_flops, lstm.input: _lstm_flops}
-    with torch.inference_mode(), FlopCounterMode(
+    with torch.inference_mode(), graphs.eager(), FlopCounterMode(
             display=False, custom_mapping=mapping) as counter:
         fn(*args)
     return float(counter.get_total_flops())
