@@ -114,15 +114,19 @@ Phases, in order; any failure exits non-zero:
      losses, per-leaf update norms and BatchNorm statistics at the bars
      that expected_jax_train_fp32.json states; bfloat16 losses finite and
      within its bar of float32's; ms a step (CUDA events); a checkpoint
-     written and read back resumes to the same next loss.
+     written and read back resumes to the same next loss. The steps run
+     as the trainers run them by default: captured programs (phase 24).
+     (Phases 16 and 18 train through the same programs.)
   16. parallel (ocrjax_torch.parallel.mesh), in a child process that is
      one NCCL rank on the card (world size 1; the card machine has one
      GPU, so multi-rank results are held on the CPU by the tests): the
      dp-sharded fused program on phase 2's 16 pages in float32 (its packed
      rows gathered by one all_gather a call) and sharded tiled serving on
-     the A4 pages, each against the unsharded run at the goldens' bar; one
-     sharded rec step at full width against the
-     unsharded step at phase 15's loss and update bars; the sharded and
+     the A4 pages, each against the unsharded run at the goldens' bar;
+     three sharded rec steps at full width (a captured program, its NCCL
+     collectives inside the graph) against the unsharded steps at phase
+     15's loss and update bars, with each step program's keys, replays
+     and recaptures recorded for phase 24; the sharded and
      the unsharded fused call's ms; then dryrun_multichip(1) on a CPU rank;
   17. the native host library: built and taken by the pack and the chunk
      decode in phase 3, its canvases and packed bytes bit-equal to the
@@ -229,16 +233,36 @@ Phases, in order; any failure exits non-zero:
      (a 16 x 960 fused call in bf16 and in fp32, the C5 batch); (g)
      graphs.EAGER; the phase within GRAPH_PHASE_MAX_S. The record goes to
      ocrjax_torch/_build/graphs_phase.json.
+  24. training programs (graphs.StepProgram: the rec, det and cls train
+     steps; graphs.Program: their evaluation forwards), on fresh models
+     from the shipped assets at full width after phase 15's deterministic
+     algorithms: for each trainer in float32 and bfloat16,
+     TRAIN_GRAPH_STEPS steps on phase 15's committed batches op by op
+     (graphs.eager()) and graphed under graphs.sync_checked() (the first
+     call of a key, its capture, then replays), equal bit for bit in the
+     losses (and det's parts), every parameter, the BatchNorm statistics,
+     mu, nu, the optimizer's per-step values and its count; in bfloat16,
+     ms a step on both routes in turns (eager, graphed, graphed, eager;
+     CUDA events) and torch.profiler's launch calls and device operations
+     of one step on each route; capture ms a key, replays, peak memory over
+     the start on each route; each evaluation forward (rec exact match,
+     det recall and precision with K1 inside, cls logits) op by op and
+     graphed, equal, with K1's launches equal on both routes and on the
+     shared path; phase 16's sharded and unsharded rec steps replayed
+     (their programs' record); graphs.EAGER; the phase within
+     TRAIN_GRAPH_PHASE_MAX_S. The record goes to
+     ocrjax_torch/_build/train_graphs.json.
 Each kernel must be launched in the phases that run it (cc_label: 2, 3, 5,
-7-12, 13, 14, 16, 18, 19, 20, 21, 22 and 23; conv_fused: 4 and 19's conv
-gate); the
+7-12, 13, 14, 16, 18, 19, 20, 21, 22, 23 and 24; conv_fused: 4 and 19's
+conv gate); the
 counts are set to 0 just before such a phase, or gate or script, and read
 just after, in all and by path; the lane phases 2, 3, 5-8, 10, 11, 12's
 page calls, 13's page sections, 14, 16's fused call, 18, 19's page gates
-and 20's page scripts and 21's diag_rec_fetch and diag_reroute must label
-on the shared path only, phase 9, 12's tiled call, 13's C5 sections, 16's
-tiled call, 19's C5 gates and its 256x256 bitmaps (extract_boxes, ccl),
-20's eval_tiled_quality and probe_dense, 21's diag_dense,
+and 20's page scripts and 21's diag_rec_fetch and diag_reroute and 24's
+det evaluation must label on the shared path only, phase 9, 12's tiled
+call, 13's C5 sections, 16's tiled call, 19's C5 gates and its 256x256
+bitmaps (extract_boxes, ccl), 20's eval_tiled_quality and probe_dense,
+21's diag_dense,
 diag_dense_stages and diag_tile_det (a 512x512 grid at every head stride)
 and 22's ocr_tiled calls on the cluster path only; 22's fused, pooled,
 detect and ocr calls on the shared path only. The last lines
@@ -2067,7 +2091,7 @@ def _parallel_child(rank, init_file, out_file):
             arrays = [[f[f"rec{i}_{k}"] for k in (
                 "images", "widths", "labels", "label_lengths")]
                 for i in range(3)]
-        losses, updates = [], []
+        losses, updates, programs = [], [], {}
         for shard in (False, True):
             model, opt, step = _train_models("rec", "float32", "cuda")
             before = W.model_variables(model)
@@ -2082,11 +2106,16 @@ def _parallel_child(rank, init_file, out_file):
             updates.append({k: float(np.linalg.norm(after[k] - before[k]))
                             for k in before if k.startswith("params/")
                             and k not in noise})
+            stats = list(step.program.stats().values())
+            programs["sharded" if shard else "unsharded"] = {
+                "name": step.program.name, "keys": len(stats),
+                "replays": sum(st["replays"] for st in stats),
+                "recaptures": step.program.recaptures}
         loss_rel = max(abs(s - u) / abs(u) for s, u in zip(*losses[::-1]))
         upd_rel = max(abs(updates[1][k] - w) / max(w, 1e-12)
                       for k, w in updates[0].items())
         out["rec_step"] = {"losses": losses, "loss_rel": loss_rel,
-                           "update_rel": upd_rel}
+                           "update_rel": upd_rel, "programs": programs}
         if loss_rel > bars["loss_rtol"] or upd_rel > bars["update_rtol"]:
             fail(f"sharded rec step: loss gap {loss_rel}, update gap "
                  f"{upd_rel} beyond {bars}")
@@ -4436,6 +4465,235 @@ def phase_graphs(counters, smi: str) -> tuple:
     return ccl, record
 
 
+# ---------------------------------------------------------------------------
+# 24. training programs: the train steps and evaluation forwards as graphs
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAPH_STEPS = 7           # phase 15's 3 batches, then 1, 2 twice
+TRAIN_TIMED_STEPS = 3           # steps a turn in 24's ms a step
+TRAIN_GRAPH_PHASE_MAX_S = 60.0
+
+
+def _step_state(model, opt) -> dict:
+    """Every tensor a step updates, cloned, and the count."""
+    from ocrjax_torch.train.optim import step_state
+    out = {k: t.detach().clone() for k, t in step_state(model, opt).items()}
+    out["opt/count"] = opt.count
+    return out
+
+
+def _train_route(name: str, dtype: str, route: str, seq: list) -> dict:
+    """TRAIN_GRAPH_STEPS steps of one trainer on one route from the
+    shipped asset: losses (and det's parts) cloned a step, the state
+    after, the peak memory over the start; the model, optimizer and step
+    for the timings."""
+    import torch
+    from ocrjax_torch import graphs
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, opt, step = _train_models(name, dtype, "cuda")
+    outs = []
+    ctx = graphs.eager() if route == "eager" else graphs.sync_checked()
+    with ctx:
+        for x in seq:
+            out = step(*x)
+            outs.append([t.clone() for t in (
+                [out[0], *out[1].values()] if isinstance(out, tuple)
+                else [out])])
+    torch.cuda.synchronize()
+    return {"outs": outs, "state": _step_state(model, opt),
+            "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+            "model": model, "opt": opt, "step": step}
+
+
+def _equal_state(a: dict, b: dict) -> list:
+    """The names whose values differ in any bit."""
+    import torch
+    return [k for k in a if (a[k] != b[k] if not torch.is_tensor(a[k])
+                             else not torch.equal(a[k], b[k]))]
+
+
+def _route_ms(runs: dict, seq: list) -> dict:
+    """ms a step on each route, in turns (eager, graphed, graphed, eager),
+    TRAIN_TIMED_STEPS steps a turn, CUDA events around each step; the
+    median of each route's steps."""
+    import torch
+    from ocrjax_torch import graphs
+    times = {"eager": [], "graphed": []}
+    for route in ("eager", "graphed", "graphed", "eager"):
+        step = runs[route]["step"]
+        ctx = graphs.eager() if route == "eager" \
+            else contextlib.nullcontext()
+        with ctx:
+            for x in seq[:TRAIN_TIMED_STEPS]:
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                step(*x)
+                e.record()
+                e.synchronize()
+                times[route].append(s.elapsed_time(e))
+    return {r: statistics.median(v) for r, v in times.items()}
+
+
+def _eval_programs(name: str) -> dict:
+    """The trainer's evaluation forward op by op and graphed (a capture,
+    then replays) on fresh inputs: equal bit for bit; the det evaluation's
+    K1 launches on the graphed route (counted at every replay)."""
+    import numpy as np
+    import torch
+    from ocrjax_torch import graphs
+    from ocrjax_torch.api import asset_config
+    from ocrjax_torch.charset import Charset
+    from ocrjax_torch.api import ASSETS
+    from ocrjax_torch.ops.cc_label import label_components_cuda as K1
+    from ocrjax_torch.train import cls_trainer, det_trainer, rec_trainer
+    from ocrjax_torch.train import synth
+    cfg = asset_config()
+    cs = Charset.from_file(os.path.join(ASSETS, "rec.charset.txt"))
+    model = _train_models(name, "bfloat16", "cuda")[0]
+    got, out = {}, {}
+    for route in ("eager", "graphed"):
+        rng = np.random.RandomState(5)
+        ctx = graphs.eager() if route == "eager" else graphs.sync_checked()
+        k1_before = K1.launches
+        with ctx:
+            if name == "det":
+                got[route] = det_trainer.eval_detection(
+                    model, cfg, cs, rng, n_pages=3)
+            elif name == "rec":
+                batches = [synth.make_line_batch(rng, cs, 32, 192,
+                                                 cfg.rec_height, max_len=10)
+                           for _ in range(3)]
+                got[route] = rec_trainer.evaluate_exact_match(model, cs,
+                                                              batches)
+            else:
+                lb = synth.make_line_batch(rng, cs, 64, 192, cfg.rec_height,
+                                           max_len=16)
+                imgs, ws = (torch.from_numpy(a).cuda()
+                            for a in (lb.images, lb.widths))
+                got[route] = [cls_trainer.cls_logits(
+                    model, imgs, ws, cfg.rec_mean, cfg.rec_std).clone()
+                    for _ in range(3)]
+        if name == "det":
+            out[f"k1_{route}"] = K1.launches - k1_before
+    if name == "cls":
+        same = all(torch.equal(a, b) for a, b in zip(got["eager"],
+                                                     got["graphed"]))
+        got = {k: [float(t.float().abs().sum()) for t in v]
+               for k, v in got.items()}
+    else:
+        same = got["eager"] == got["graphed"]
+    prog = model.__dict__["_programs"][f"{name}_eval"]
+    out.update({"result": got, "equal": same, "program": {
+        str(i): s for i, s in enumerate(prog.stats().values())}})
+    return out
+
+
+def phase_train_graphs(smi: str, parallel: dict) -> dict:
+    """Phase 24 (see the module docstring). Returns the record."""
+    import numpy as np
+    import torch
+    from ocrjax_torch import graphs
+    t_phase = time.perf_counter()
+    with np.load(os.path.join(TESTDATA, "train_batches.npz")) as f:
+        batches = {k: f[k] for k in f.files}
+    record, failures = {"card": smi}, []
+    for name in ("rec", "det", "cls"):
+        inputs = [_train_inputs(batches, name, i, "cuda") for i in range(3)]
+        seq = (inputs + inputs[1:] * 2)[:TRAIN_GRAPH_STEPS]
+        rec = record[name] = {}
+        for dtype in ("float32", "bfloat16"):
+            runs = {r: _train_route(name, dtype, r, seq)
+                    for r in ("eager", "graphed")}
+            e, g = runs["eager"], runs["graphed"]
+            loss_same = all(torch.equal(a, b) for sa, sb in
+                            zip(e["outs"], g["outs"])
+                            for a, b in zip(sa, sb))
+            differ = _equal_state(e["state"], g["state"])
+            prog = g["step"].program
+            stats = list(prog.stats().values())
+            row = {"losses": [float(o[0]) for o in g["outs"]],
+                   "losses_equal": loss_same, "state_tensors": len(e["state"]),
+                   "state_differ": differ[:5], "n_differ": len(differ),
+                   "keys": len(stats), "replays": sum(s["replays"]
+                                                     for s in stats),
+                   "capture_ms": [s["capture_ms"] for s in stats],
+                   "graphs_a_replay": [s["graphs"] for s in stats],
+                   "recaptures": prog.recaptures,
+                   "peak_mib": {r: runs[r]["peak_mib"] for r in runs}}
+            if dtype == "bfloat16":
+                row["ms_a_step"] = _route_ms(runs, seq)
+                row["launches_a_step"] = {}
+                for route in ("eager", "graphed"):
+                    ctx = graphs.eager() if route == "eager" \
+                        else contextlib.nullcontext()
+                    with ctx:
+                        row["launches_a_step"][route] = _launch_counts(
+                            lambda: runs[route]["step"](*seq[0]))
+            rec[dtype] = row
+            print(f"  {name} {dtype}: {TRAIN_GRAPH_STEPS} steps graphed "
+                  f"{'equal' if loss_same and not differ else 'NOT equal'} "
+                  f"to op by op (losses, {len(e['state'])} state tensors, "
+                  f"count); {row['keys']} key(s), capture ms "
+                  f"{[round(c, 1) for c in row['capture_ms']]}, "
+                  f"{row['replays']} replays, peak MiB "
+                  f"{ {r: round(v, 1) for r, v in row['peak_mib'].items()} }")
+            if not loss_same or differ:
+                failures.append(f"{name} {dtype}: graphed differs from op by "
+                                f"op (losses equal: {loss_same}; state "
+                                f"{differ[:5]})")
+            if row["replays"] != TRAIN_GRAPH_STEPS - row["keys"]:
+                failures.append(f"{name} {dtype}: {row['replays']} replays "
+                                f"for {TRAIN_GRAPH_STEPS} steps")
+            del runs, e, g
+            gc.collect()
+        ev = rec["eval"] = _eval_programs(name)
+        print(f"  {name} evaluation forward: graphed "
+              f"{'equal' if ev['equal'] else 'NOT equal'} to op by op "
+              f"({ev['result']['graphed']}); program {ev['program']}"
+              + (f"; K1 launches {ev['k1_eager']} op by op, "
+                 f"{ev['k1_graphed']} graphed" if name == "det" else ""))
+        if not ev["equal"]:
+            failures.append(f"{name} evaluation: graphed differs")
+        if name == "det" and (ev["k1_graphed"] != ev["k1_eager"]
+                              or ev["k1_graphed"] == 0):
+            failures.append(f"det evaluation: K1 launched "
+                            f"{ev['k1_graphed']} times graphed, "
+                            f"{ev['k1_eager']} op by op")
+        b = rec["bfloat16"]
+        print(f"    bf16 ms a step (CUDA events, turns e g g e, median of "
+              f"{2 * TRAIN_TIMED_STEPS}): "
+              + json.dumps({k: round(v, 3) for k, v in b["ms_a_step"].items()})
+              + "; launch calls a step: " + json.dumps(
+                  {r: v["host_launch_calls"]
+                   for r, v in b["launches_a_step"].items()})
+              + ", device operations: " + json.dumps(
+                  {r: v["device_ops"]
+                   for r, v in b["launches_a_step"].items()}))
+    sharded = parallel.get("rec_step", {}).get("programs", {})
+    record["sharded_rec"] = sharded
+    print(f"  phase 16's rec steps as programs: {sharded}")
+    for tag in ("sharded", "unsharded"):
+        s = sharded.get(tag)
+        if tag not in graphs.EAGER and (not s or s["replays"] < 1):
+            failures.append(f"phase 16's {tag} rec step never replayed")
+    record["eager_programs"] = dict(graphs.EAGER)
+    took = time.perf_counter() - t_phase
+    record["seconds"] = took
+    print(f"  graphs.EAGER: {graphs.EAGER or 'empty'}; phase 24: "
+          f"{took:.1f} s ({smi})")
+    with open(os.path.join(PKG, "_build", "train_graphs.json"), "w") as f:
+        json.dump(record, f, indent=1, default=str)
+    if failures:
+        fail("phase 24: " + "; ".join(failures))
+    if took > TRAIN_GRAPH_PHASE_MAX_S:
+        fail(f"phase 24 took {took:.1f} s, past {TRAIN_GRAPH_PHASE_MAX_S} s")
+    return record
+
+
 def _fused_inputs(eng, pages) -> tuple:
     """(packed canvases, thresholds, valid (w, h)) of pages for FusedOcr."""
     import numpy as np
@@ -4561,6 +4819,12 @@ def main() -> int:
            f"route ({smi})")
     graphs_ccl, _ = phase_graphs(counters, smi)
     ccl_phases.update({f"23 {k}": v for k, v in graphs_ccl.items()})
+    header(f"== 24. training programs: train steps and evaluation forwards "
+           f"as CUDA graphs against the op-by-op route ({smi})")
+    reset(counters)
+    phase_train_graphs(smi, parallel)
+    ccl_phases["24"] = only_path("24 det evaluation", "shared")
+    read(counters, "24", ["label_components_cuda"])
     print(f"  beam ctc {beam}, cls stage {cls_ms}")
     print("  opt-in: " + json.dumps({
         **optin16, "int8_own_fold": optin32["int8_own_fold"],

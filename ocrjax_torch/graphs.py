@@ -30,7 +30,9 @@ replayed from then on.
   `launched(fn, *args)` (the kernels' launch counters) runs fn at every
   replay of the graph that holds the launch, not at the capture.
 * A program must not write its inputs; it may read no tensor other than
-  its arguments and the engine's weights and constants.
+  its arguments and the engine's weights and constants. A `StepProgram`
+  (a training step) is the one kind that writes state: its parameters,
+  statistics and optimizer moments, which it names (see its docstring).
 * On the CPU a program is its function. `eager()` runs every program op by
   op on the card (the counterpart of `jax.disable_jit()`); `EAGER` names
   the programs that always do, with the reason.
@@ -156,6 +158,12 @@ class CudaBackend:
         g.stream = self.stream(g.device)
         g.pool = self.pool()
         g.anchor = self.anchor(g)
+
+    def hold(self, tensors):
+        """Around a StepProgram's capture: nothing to do, since a capture
+        on the card records kernels without running them, so the state
+        stays as the program's eager first call left it."""
+        return contextlib.nullcontext()
 
     def release_cached(self, always: bool = False) -> None:
         """The cached blocks of every stream go back to the card, as
@@ -352,7 +360,8 @@ class Program:
                 or getattr(_state, "busy", False)):
             with checked():
                 return self.fn(*args, **kw)
-        with torch.inference_mode(), checked():
+        with self._mode(), checked():
+            self._check_state()
             key = self._key(args, kw)
             entry = self.entries.get(key)
             if entry is None:
@@ -363,6 +372,18 @@ class Program:
             entry.tape.replay()
             entry.replays += 1
             return entry.static_out
+
+    # hooks for StepProgram: the autograd mode of the calls on the card,
+    # the check of the state before a call, what holds the state around
+    # a capture
+    def _mode(self):
+        return torch.inference_mode()
+
+    def _check_state(self) -> None:
+        pass
+
+    def _hold(self, backend):
+        return contextlib.nullcontext()
 
     def _capture(self, key, args, kw, backend, dev):
         t0 = time.perf_counter()
@@ -380,13 +401,15 @@ class Program:
                 backend.release_cached()
                 tape = _Tape(g)
                 try:
-                    static_out = tape.record(self.fn, static_in, kw)
+                    with self._hold(backend):
+                        static_out = tape.record(self.fn, static_in, kw)
                 except torch.cuda.OutOfMemoryError:
                     # once more with every cached block returned; a second
                     # failure raises (the fused lane then halves its chunk)
                     backend.release_cached(always=True)
                     tape = _Tape(g)
-                    static_out = tape.record(self.fn, static_in, kw)
+                    with self._hold(backend):
+                        static_out = tape.record(self.fn, static_in, kw)
         finally:
             _state.busy = False
         backend.wait(cur, g.stream)
@@ -402,6 +425,84 @@ class Program:
         whole: its eager run and the capture), replays since."""
         return {k: {"graphs": e.tape.n_graphs, "capture_ms": e.capture_ms,
                     "replays": e.replays} for k, e in self.entries.items()}
+
+
+class StepProgram(Program):
+    """A Program that updates state in place: a training step (forward,
+    loss, backward, optimizer update), ocrjax's jitted train_step. It
+    differs from a serving Program in four ways:
+
+    * `state()` names every tensor the body writes or reads across calls
+      besides its arguments: the model's parameters and buffers, the
+      optimizer's moments and its per-step values (train.optim.step_state).
+      Its storage is read and written in place at every replay.
+    * The capture records each state tensor's identity and data_ptr and
+      keeps a reference to it (its storage cannot be reused while the
+      graphs live). Before a call the state is looked at again: when a
+      tensor was replaced (a new tensor under a name, or a parameter's
+      .data set to new storage), the program drops every graph it holds
+      and captures anew from that call (`recaptures` counts it), since a
+      replay would update storage the model no longer holds. Resuming a
+      checkpoint and the mesh's unsharded() copy into the storage in
+      place, so they recapture nothing.
+    * It runs with autograd on, not in inference mode. The gradients the
+      body allocates (the optimizer's zero_grad sets them to None, and
+      the backward inside the capture makes them) come from the pool, and
+      the parameters' .grad hold them after the capture: PyTorch's
+      whole-network capture pattern.
+    * The first call of a key runs eagerly on the capture stream and is
+      the real step; the capture after it must leave the state as it is
+      (on the card it runs nothing; `backend.hold` restores the state
+      around a capture that runs the body, as the tests' stand-in does).
+
+    Every per-step value (the learning rate, the bias corrections) must be
+    in a state tensor that the caller refreshes before the call, outside
+    the program (Adam.prepare), and the body must read nothing back to
+    the host."""
+
+    def __init__(self, fn: Callable, name: str,
+                 state: Callable[[], Dict[str, torch.Tensor]]):
+        super().__init__(fn, name)
+        self.state = state
+        self.recaptures = 0
+        self._sig = None
+        self._held = None
+
+    def clear(self) -> None:
+        super().clear()
+        self._sig = self._held = None
+
+    def _signature(self):
+        st = self.state()
+        return st, tuple((k, id(t), t.data_ptr(), tuple(t.shape), t.dtype)
+                         for k, t in st.items())
+
+    def _mode(self):
+        return contextlib.nullcontext()
+
+    def _check_state(self) -> None:
+        st, sig = self._signature()
+        if sig != self._sig:
+            if self.entries:
+                self.clear()
+                self.recaptures += 1
+            self._sig, self._held = sig, st
+
+    def _hold(self, backend):
+        return backend.hold(list(self._held.values()))
+
+
+def owned_program(owner, name: str, fn: Callable) -> Program:
+    """The Program `name` over fn kept on `owner` (a model: its
+    evaluation forwards), made at first use; it reads the owner's
+    parameters in place, so updates between two calls are seen. The
+    first call's fn is kept: fn may close over the owner and nothing
+    else."""
+    progs = owner.__dict__.setdefault("_programs", {})
+    p = progs.get(name)
+    if p is None:
+        p = progs[name] = Program(fn, name)
+    return p
 
 
 def program(engine, name: str, fn: Callable) -> Program:

@@ -266,7 +266,8 @@ def _tensors(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 def _keep_local(model: torch.nn.Module, opt, rank: int, n_tp: int) -> None:
     """Each split tensor of the model, and the optimizer's moments of it,
-    -> this rank's local slice (model.placements)."""
+    -> this rank's local slice (model.placements), in new storage: before
+    the first training step (shard_params)."""
     tensors = _tensors(model)
     for name, p in getattr(model, "placements", {}).items():
         if p is None:
@@ -302,26 +303,41 @@ def shard_params(mesh: DeviceMesh, model: torch.nn.Module, opt=None
 @contextlib.contextmanager
 def unsharded(mesh: DeviceMesh, model: torch.nn.Module, opt=None):
     """Within the block the model's (and the optimizer's) split tensors
-    hold their full values, gathered over tp; they are split again on
-    exit. For writing variables and checkpoints of a sharded model."""
+    hold their full values, gathered over tp. On exit each takes its local
+    slice of them again, copied into the storage it held before the
+    block, so a captured training step (graphs.StepProgram) goes on
+    updating the tensors the model holds. For writing variables and
+    checkpoints of a sharded model."""
     group, n_tp = mesh.get_group(TP_AXIS), mesh.size(1)
+    rank = mesh.get_local_rank(TP_AXIS)
     tensors = _tensors(model)
 
-    def gather(t):
+    def gather(t, split):
         parts = [torch.empty_like(t) for _ in range(n_tp)]
         dist.all_gather(parts, t.contiguous(), group=group)
-        return parts
+        return split.full(parts)
+    held = []       # (parameter or moment dict, moment name, local, split)
     for name, p in getattr(model, "placements", {}).items():
         if p is None:
             continue
-        tensors[name].data = p.full(gather(tensors[name].data))
+        t = tensors[name]
+        held.append((t, None, t.data, p))
+        t.data = gather(t.data, p)
         if opt is not None and name in opt.mu:
             for buf in (opt.mu, opt.nu):
-                buf[name] = p.full(gather(buf[name]))
+                held.append((buf, name, buf[name], p))
+                buf[name] = gather(buf[name], p)
     try:
         yield model
     finally:
-        _keep_local(model, opt, mesh.get_local_rank(TP_AXIS), n_tp)
+        with torch.no_grad():
+            for holder, key, local, p in held:
+                full = holder.data if key is None else holder[key]
+                local.copy_(p.local(full, rank, n_tp))
+                if key is None:
+                    holder.data = local
+                else:
+                    holder[key] = local
 
 
 def attach(mesh: DeviceMesh, model: torch.nn.Module, opt) -> None:

@@ -28,8 +28,9 @@ def save_train_state(path: str, step: int, model: torch.nn.Module, opt,
 
 
 def load_train_state(path: str, model: torch.nn.Module, opt) -> int:
-    """Loads the model's variables and the optimizer state in place;
-    returns the step."""
+    """Loads the model's variables and the optimizer state in place (into
+    the tensors they hold, which a captured training step goes on
+    updating); returns the step."""
     flat, meta = W.read_safetensors(path)
     W.load_model_variables(model, {k: v for k, v in flat.items()
                                    if not k.startswith("opt/")})

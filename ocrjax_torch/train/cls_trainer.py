@@ -23,14 +23,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ocrjax_torch import preprocess
+from ocrjax_torch import graphs, preprocess
 from ocrjax_torch import weights as W
 from ocrjax_torch.charset import Charset, default_charset
 from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.cls import create_cls, flip_strips_by_width
 from ocrjax_torch.train import synth
 from ocrjax_torch.train.optim import (Adam, cosine_decay_schedule,
-                                      train_device, trainable)
+                                      halves, step_state, train_device,
+                                      trainable)
 
 
 @dataclasses.dataclass
@@ -99,9 +100,9 @@ def make_cls_train_step(model, opt: Adam, mean: float = 0.5,
     (labels inverted), averaged with the plain BCE."""
 
     red = opt.sync         # batch-wide means (sharded under a mesh)
+    prepare, apply = halves(opt)
 
-    def step(images, widths, labels):
-        model.train()
+    def body(images, widths, labels, mean, std, antisym):
         opt.zero_grad()
         x = preprocess.rec_normalize(images, mean, std)
         logits = model(x, widths)
@@ -118,10 +119,35 @@ def make_cls_train_step(model, opt: Adam, mean: float = 0.5,
             loss = (0.5 * (bce + bce_rot)
                     + antisym * red.mean((logits + l_rot) ** 2))
         loss.backward()
-        opt.step()
+        apply()
         return loss.detach()
 
+    program = graphs.StepProgram(body, "cls_train_step",
+                                 lambda: step_state(model, opt))
+
+    def step(images, widths, labels):
+        model.train()
+        prepare()
+        return program(images, widths, labels, float(mean), float(std),
+                       float(antisym))
+
+    step.program = program
     return step
+
+
+def cls_logits(model, images, widths, mean: float = 0.5,
+               std: float = 0.5) -> torch.Tensor:
+    """The evaluation forward: the flip logits (B,) of uint8 strips in eval
+    mode, one program of the model (captured once per batch shape on the
+    card); the program's static output."""
+    model.eval()
+
+    @torch.inference_mode()
+    def forward(images, widths, mean, std):
+        return model(preprocess.rec_normalize(images, mean, std), widths)
+
+    return graphs.owned_program(model, "cls_eval", forward)(
+        images, widths, float(mean), float(std))
 
 
 def train_cls(
@@ -213,7 +239,6 @@ def train_cls(
         eval_crops.append(DC.generate_det_crops(
             engine, n_pages=max(8, crop_pages // 4), width=192,
             seed=seed + 7777, p_word=0.5))
-    model.eval()
     hits = total = 0
     for b in range(eval_batches):
         if eval_crops:
@@ -226,10 +251,8 @@ def train_cls(
                                        **batch_kwargs(w))
             snap_rows_to_ink(rng, lb)
         labels = flip_half(rng, lb)
-        images, ws = put(lb.images, lb.widths)
-        with torch.inference_mode():
-            logits = model(preprocess.rec_normalize(
-                images, config.rec_mean, config.rec_std), ws)
+        logits = cls_logits(model, *put(lb.images, lb.widths),
+                            config.rec_mean, config.rec_std)
         pred = logits.cpu().numpy() > 0.0
         hits += int((pred == (labels > 0.5)).sum())
         total += len(labels)

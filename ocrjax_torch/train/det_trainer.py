@@ -25,13 +25,14 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ocrjax_torch import preprocess
+from ocrjax_torch import graphs, preprocess
 from ocrjax_torch import weights as W
 from ocrjax_torch.charset import Charset, default_charset
 from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.db import create_db
 from ocrjax_torch.train import det_gt
-from ocrjax_torch.train.optim import (Adam, Local, train_device, trainable,
+from ocrjax_torch.train.optim import (Adam, Local, halves, step_state,
+                                      train_device, trainable,
                                       trainer_schedule)
 
 OHEM_RATIO = 3.0
@@ -140,28 +141,43 @@ def det_optimizer(model: torch.nn.Module, lr: float, steps: int) -> Adam:
 def make_det_train_step(model, opt: Adam, cfg) -> Callable:
     """-> step(images u8 (B, S, S, 3), gt_shrink, gt_thresh, thresh_mask
     (B, S, S) float32) -> (loss, parts), device tensors in; a strided head
-    (the model's head stride) is supervised on pooled targets."""
+    (the model's head stride) is supervised on pooled targets. The device
+    work is one graphs.StepProgram, as make_train_step's (rec_trainer);
+    loss and parts are its static outputs."""
     hs = model.arch["head_stride"]
+    prepare, apply = halves(opt)
 
-    def step(images_u8, gts, gtt, gtm):
-        model.train()
+    def body(images_u8, gts, gtt, gtm, hs, mean, std):
         opt.zero_grad()
-        x = preprocess.det_normalize(images_u8, cfg.det_mean, cfg.det_std)
+        x = preprocess.det_normalize(images_u8, mean, std)
         out = model(x)
         if hs > 1:
             gts, gtt, gtm = pool_targets(gts, gtt, gtm, hs)
         loss, parts = db_loss(out, gts, gtt, gtm, opt.sync)
         loss.backward()
-        opt.step()
+        apply()
         return loss.detach(), parts
 
+    program = graphs.StepProgram(body, "det_train_step",
+                                 lambda: step_state(model, opt))
+
+    def step(images_u8, gts, gtt, gtm):
+        model.train()
+        prepare()
+        return program(images_u8, gts, gtt, gtm, hs, tuple(cfg.det_mean),
+                       tuple(cfg.det_std))
+
+    step.program = program
     return step
 
 
 def eval_detection(model, cfg, charset, rng, n_pages=8, size=None,
                    iou_thresh=0.5):
     """Recall / precision of extract_boxes against synthetic GT quads
-    (pages rendered with train.synth: host only)."""
+    (pages rendered with train.synth: host only). The forward and the box
+    extraction (K1 on the card) are one program of the model, captured
+    once per page size and config on the card; the thresholds go in as
+    a (4,) tensor, as the serving programs take them."""
     from ocrjax_torch import geometry
     from ocrjax_torch.postprocess import db_boxes
     from ocrjax_torch.train import synth
@@ -169,21 +185,25 @@ def eval_detection(model, cfg, charset, rng, n_pages=8, size=None,
     size = size or cfg.det_max_side
     device = next(model.parameters()).device
     model.eval()
+
+    @torch.inference_mode()
+    def forward(img_u8, thr, cfg):
+        x = preprocess.det_normalize(img_u8, cfg.det_mean, cfg.det_std)
+        return db_boxes.extract_boxes(
+            model(x)["prob"], thresholds=thr,
+            **db_boxes.static_kwargs_from_config(cfg))
+
+    program = graphs.owned_program(model, "det_eval", forward)
+    thr = torch.from_numpy(np.asarray(
+        [cfg.det_thresh, cfg.det_box_thresh, cfg.det_unclip_ratio,
+         float(cfg.det_min_box_size)], np.float32)).to(device)
+    key = graphs.config_key(cfg)
     tp = fp = fn = 0
     for _ in range(n_pages):
         page, gt_quads, _ = synth.render_page(
             rng, charset, size=(size, size))
         img = np.repeat(page[..., None], 3, axis=2)
-        with torch.inference_mode():
-            x = preprocess.det_normalize(
-                torch.from_numpy(img[None]).to(device), cfg.det_mean,
-                cfg.det_std)
-            cand = db_boxes.extract_boxes(
-                model(x)["prob"], thresh=float(cfg.det_thresh),
-                box_thresh=float(cfg.det_box_thresh),
-                unclip_ratio=float(cfg.det_unclip_ratio),
-                min_box_size=float(cfg.det_min_box_size),
-                **db_boxes.static_kwargs_from_config(cfg))
+        cand = program(torch.from_numpy(img[None]).to(device), thr, key)
         valid = cand["valid"][0].cpu().numpy()
         boxes = cand["boxes"][0].cpu().numpy()[valid]
         matched = set()

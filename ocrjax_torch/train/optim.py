@@ -18,7 +18,7 @@ update of each leaf. Hazards, each as optax 0.2 has it:
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,7 +95,17 @@ class Adam:
     """optax.chain(clip_by_global_norm(clip), adam(schedule)) over a list
     of named tensors (clip=None: adam alone). step() reads each tensor's
     .grad and updates it in place; `sync` reduces the gradients first and
-    gives the global norm (Local unless the step is sharded)."""
+    gives the global norm (Local unless the step is sharded).
+
+    A step has a host half and a device half, so that a captured training
+    step (graphs.StepProgram) replays with the values of its own update:
+    prepare() computes the update's learning rate and bias corrections on
+    the host in float32, copies them into the device tensor `hyper`
+    (-lr, 1 - b1^count, 1 - b2^count) and moves the count; apply() is the
+    device work, which reads nothing back to the host (the clip is a
+    select) and takes every per-step value from `hyper`. step() is both.
+    The trainers' step functions call prepare() outside their program and
+    apply() inside it."""
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule: Schedule,
                  clip: Optional[float] = 5.0, b1: float = 0.9,
@@ -107,6 +117,9 @@ class Adam:
         self.sync = Local()
         self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
         self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        dev = next(iter(self.params.values())).device if self.params \
+            else torch.device("cpu")
+        self.hyper = torch.zeros(3, dtype=torch.float32, device=dev)
 
     def zero_grad(self) -> None:
         for p in self.params.values():
@@ -116,26 +129,57 @@ class Adam:
         """The learning rate of the next update."""
         return self.schedule(self.count)
 
+    def prepare(self) -> None:
+        """The host half of the next update: -lr at the count, the bias
+        corrections at count + 1 (np.float32, as optax computes them) into
+        `hyper`, then the count moves. Runs once per step, outside any
+        captured program."""
+        count = self.count + 1
+        vals = np.asarray([
+            -np.float32(self.schedule(self.count)),
+            np.float32(1) - np.float32(self.b1) ** np.float32(count),
+            np.float32(1) - np.float32(self.b2) ** np.float32(count)],
+            np.float32)
+        src = torch.from_numpy(vals)
+        if self.hyper.is_cuda:
+            # a pinned source is held by the host allocator until the
+            # copy has run, so the next step cannot overwrite it early
+            self.hyper.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            self.hyper.copy_(src)
+        self.count = count
+
     @torch.no_grad()
-    def step(self) -> None:
+    def apply(self) -> None:
+        """The device half: clip, moments, update, all on the device."""
         grads = self.sync.reduce_grads(
             {k: (p.grad if p.grad is not None else torch.zeros_like(p))
              for k, p in self.params.items()})
         if self.clip is not None:
             norm = torch.sqrt(self.sync.sq_norm(grads))
-            if not bool(norm < self.clip):
-                grads = {k: (g / norm) * self.clip for k, g in grads.items()}
-        count = self.count + 1
-        bc1 = np.float32(1) - np.float32(self.b1) ** np.float32(count)
-        bc2 = np.float32(1) - np.float32(self.b2) ** np.float32(count)
-        step_size = -self.schedule(self.count)
+            keep = norm < self.clip
+            grads = {k: torch.where(keep, g, (g / norm) * self.clip)
+                     for k, g in grads.items()}
+        step_size, bc1, bc2 = self.hyper.unbind()
         for k, p in self.params.items():
             g = grads[k]
             mu = self.mu[k].mul_(self.b1).add_((1 - self.b1) * g)
             nu = self.nu[k].mul_(self.b2).add_((1 - self.b2) * (g * g))
-            upd = (mu / float(bc1)) / (torch.sqrt(nu / float(bc2)) + self.eps)
+            upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             p.add_(step_size * upd)
-        self.count = count
+
+    def step(self) -> None:
+        self.prepare()
+        self.apply()
+
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The tensors a step updates in place, by name: the moments and
+        `hyper` (a captured step holds their storage)."""
+        out = {"hyper": self.hyper}
+        for k in self.params:
+            out[f"mu/{k}"] = self.mu[k]
+            out[f"nu/{k}"] = self.nu[k]
+        return out
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """{"count": (), "mu/<name>": ..., "nu/<name>": ...}."""
@@ -146,11 +190,37 @@ class Adam:
         return out
 
     def load_state_dict(self, state: Dict) -> None:
+        """Copies the moments into the tensors the optimizer holds (a
+        captured step keeps writing them) and sets the count."""
         self.count = int(np.asarray(state["count"]).reshape(-1)[0])
-        for k, p in self.params.items():
+        for k in self.params:
             for name, buf in (("mu", self.mu), ("nu", self.nu)):
-                buf[k] = torch.as_tensor(np.asarray(state[f"{name}/{k}"]),
-                                         dtype=p.dtype).to(p.device).clone()
+                src = torch.as_tensor(np.asarray(state[f"{name}/{k}"]))
+                if src.shape != buf[k].shape:
+                    raise ValueError(f"{name}/{k}: shape {tuple(src.shape)} "
+                                     f"!= {tuple(buf[k].shape)}")
+                buf[k].copy_(src)
+
+
+def halves(opt) -> Tuple[Callable[[], None], Callable[[], None]]:
+    """An optimizer's step as (host half, device half): Adam's prepare and
+    apply. An optimizer with step() alone runs it whole as the device
+    half; it must then read nothing back to the host and keep every
+    per-step value in a tensor."""
+    if isinstance(opt, Adam):
+        return opt.prepare, opt.apply
+    return (lambda: None), opt.step
+
+
+def step_state(model: torch.nn.Module, opt) -> Dict[str, torch.Tensor]:
+    """What a training step reads and writes in place besides its batch:
+    the model's parameters and buffers (BatchNorm statistics), the
+    optimizer's moments and per-step values (graphs.StepProgram.state)."""
+    out = {f"model/{k}": t for k, t in model.named_parameters()}
+    out.update({f"model/{k}": t for k, t in model.named_buffers()})
+    if isinstance(opt, Adam):
+        out.update({f"opt/{k}": t for k, t in opt.state().items()})
+    return out
 
 
 def trainable(model: torch.nn.Module) -> Dict[str, torch.Tensor]:

@@ -25,15 +25,15 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ocrjax_torch import preprocess
+from ocrjax_torch import graphs, preprocess
 from ocrjax_torch import weights as W
 from ocrjax_torch.charset import Charset, default_charset
 from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.crnn import create_crnn
 from ocrjax_torch.ops import ctc
 from ocrjax_torch.train import synth
-from ocrjax_torch.train.optim import (Adam, train_device, trainable,
-                                      trainer_schedule)
+from ocrjax_torch.train.optim import (Adam, halves, step_state, train_device,
+                                      trainable, trainer_schedule)
 
 
 @dataclasses.dataclass
@@ -56,11 +56,17 @@ def make_train_step(model, opt: Adam, ent_reg: float = 0.0) -> Callable:
 
     ent_reg > 0 subtracts ent_reg times the mean frame entropy over valid
     frames (ocrjax's soft-posterior term). Batch-wide reductions go through
-    opt.sync, so the same step runs sharded (parallel.mesh)."""
-    red = opt.sync
+    opt.sync, so the same step runs sharded (parallel.mesh).
 
-    def step(images, widths, labels, label_lengths):
-        model.train()      # flax's BN train mode; cuDNN's LSTM backward
+    The device work is one graphs.StepProgram, ocrjax's jitted step: on
+    the card captured once per batch shape and replayed (graphs.eager()
+    runs it op by op); the optimizer's host half (Adam.prepare) runs
+    before it at every step. The loss is the program's static output,
+    which the next step overwrites."""
+    red = opt.sync
+    prepare, apply = halves(opt)
+
+    def body(images, widths, labels, label_lengths, ent_reg):
         opt.zero_grad()
         x = preprocess.rec_normalize(images)
         logits, frame_lengths = model(x, widths)
@@ -75,27 +81,44 @@ def make_train_step(model, opt: Adam, ent_reg: float = 0.0) -> Callable:
                 red.sum(torch.sum(ent * mask))
                 / torch.clamp(red.sum(mask.sum()), min=1.0))
         loss.backward()
-        opt.step()
+        apply()
         return loss.detach()
 
+    program = graphs.StepProgram(body, "rec_train_step",
+                                 lambda: step_state(model, opt))
+
+    def step(images, widths, labels, label_lengths):
+        model.train()      # flax's BN train mode; cuDNN's LSTM backward
+        prepare()
+        return program(images, widths, labels, label_lengths,
+                       float(ent_reg))
+
+    step.program = program
     return step
 
 
 def evaluate_exact_match(model, charset, batches) -> float:
-    """Fraction of lines whose greedy decode equals the ground-truth text."""
+    """Fraction of lines whose greedy decode equals the ground-truth text.
+    The forward and the decode are one program of the model (captured once
+    per batch shape on the card)."""
     model.eval()
     device = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def forward(images, widths):
+        logits, fl = model(preprocess.rec_normalize(images), widths)
+        toks, n, _ = ctc.ctc_greedy_decode(logits, fl, max_tokens=64)
+        return toks, n
+
+    program = graphs.owned_program(model, "rec_eval", forward)
     hits = total = 0
-    with torch.inference_mode():
-        for lb in batches:
-            x = preprocess.rec_normalize(
-                torch.from_numpy(lb.images).to(device))
-            logits, fl = model(x, torch.from_numpy(lb.widths).to(device))
-            toks, n, _ = ctc.ctc_greedy_decode(logits, fl, max_tokens=64)
-            toks, n = toks.cpu().numpy(), n.cpu().numpy()
-            for i, text in enumerate(lb.texts):
-                hits += int(charset.decode(toks[i][: n[i]]) == text)
-                total += 1
+    for lb in batches:
+        toks, n = program(torch.from_numpy(lb.images).to(device),
+                          torch.from_numpy(lb.widths).to(device))
+        toks, n = toks.cpu().numpy(), n.cpu().numpy()
+        for i, text in enumerate(lb.texts):
+            hits += int(charset.decode(toks[i][: n[i]]) == text)
+            total += 1
     return hits / max(total, 1)
 
 
