@@ -27,6 +27,7 @@ from ocrjax_torch.models.cls import create_cls
 from ocrjax_torch.models.crnn import create_crnn
 from ocrjax_torch.models.db import create_db
 from ocrjax_torch.utils.logging import get_logger, log_fields
+from ocrjax_torch.utils.profiling import entry
 
 ImageLike = preprocess.ImageLike
 Flat = Mapping[str, np.ndarray]   # flax path -> array, as weights reads it
@@ -262,6 +263,7 @@ class OcrEngine:
             strips, flipped = _cls_flip_strips(self, strips, widths, seg_ids)
             return (*crnn_decode(self, strips, widths, beam), flipped)
 
+    @entry
     def recognize_strips(self, strips: Sequence[np.ndarray],
                          beam: bool = False, same_page: bool = False,
                          prior_ids: Sequence[int] = None) -> List[RecResult]:
@@ -313,17 +315,20 @@ class OcrEngine:
                           float(conf[i]), flipped=bool(flipped[i]))
                 for i in range(n)]
 
+    @entry
     def recognize(self, image: ImageLike, beam: bool = False) -> RecResult:
         """One pre-cropped text-line image -> one string."""
         img = preprocess.load_image(image,
                                     auto_invert=self.config.auto_invert)
         return self.recognize_strips([img], beam=beam)[0]
 
+    @entry
     def detect(self, image: ImageLike) -> List[DetBox]:
         """Full page -> boxes in original image coords, reading order."""
         from ocrjax_torch import api_det
         return api_det.detect(self, image)
 
+    @entry
     def ocr(self, image: ImageLike, beam: bool = False) -> OcrResult:
         """One page -> ordered text lines: the fused lane for a page that
         fits the canvas (cfg.ocr_single_fused), else the staged lane with
@@ -331,6 +336,7 @@ class OcrEngine:
         from ocrjax_torch import api_det
         return api_det.ocr(self, image, beam=beam)
 
+    @entry
     def ocr_batch(self, images: Sequence[ImageLike], beam: bool = False,
                   fused: bool = False) -> List[OcrResult]:
         """Batched page OCR: fused=True runs the fused lane (fixed line
@@ -342,18 +348,21 @@ class OcrEngine:
         from ocrjax_torch import api_det
         return api_det.ocr_batch(self, images, beam=beam)
 
+    @entry
     def detect_tiled(self, image: ImageLike) -> List[DetBox]:
         """High-resolution page -> boxes in original image coords, reading
         order: overlapping tiles of cfg.tile_size, seams merged."""
         from ocrjax_torch import api_det
         return api_det.detect_tiled(self, image)
 
+    @entry
     def ocr_tiled(self, image: ImageLike, beam: bool = False) -> OcrResult:
         """High-resolution page -> ordered text lines: tiled detection and
         pooled recognition from the uploaded tiles."""
         from ocrjax_torch import tiling
         return tiling.ocr_tiled(self, image, beam=beam)
 
+    @entry
     def ocr_tiled_batch(self, images: Sequence[ImageLike],
                         beam: bool = False) -> List[OcrResult]:
         """Many high-resolution pages in windows of tiles, detection of

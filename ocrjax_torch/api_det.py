@@ -42,11 +42,12 @@ from ocrjax_torch.utils.profiling import StageTimer, stage
 def upload(engine, a: np.ndarray) -> torch.Tensor:
     """Host array -> tensor on the engine's device (pinned and
     non-blocking on a card)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if engine.device.type == "cuda":
-        with graphs.checked():
-            return t.pin_memory().to(engine.device, non_blocking=True)
-    return t
+    with stage("upload", device=False):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if engine.device.type == "cuda":
+            with graphs.checked():
+                return t.pin_memory().to(engine.device, non_blocking=True)
+        return t
 
 
 def upload_thresholds(engine) -> torch.Tensor:
@@ -597,14 +598,15 @@ def ocr(engine, image, beam: bool = False, force_staged: bool = False,
         tokens, n_tokens, conf = (t.cpu().numpy() for t in out)
         flips = []
 
-    quads_orig = [geometry.scale_quads(boxes[i], scale) for i in idx]
-    lines = []
-    for k in reading_order(quads_orig, flips):
-        lines.append(OcrLine(
-            box=DetBox(quads_orig[k], float(scores[idx[k]])),
-            text=engine.charset.decode(tokens[k][: n_tokens[k]]),
-            confidence=float(conf[k])))
-    return OcrResult(lines=lines)
+    with stage("assemble", device=False):
+        quads_orig = [geometry.scale_quads(boxes[i], scale) for i in idx]
+        lines = []
+        for k in reading_order(quads_orig, flips):
+            lines.append(OcrLine(
+                box=DetBox(quads_orig[k], float(scores[idx[k]])),
+                text=engine.charset.decode(tokens[k][: n_tokens[k]]),
+                confidence=float(conf[k])))
+        return OcrResult(lines=lines)
 
 
 @torch.inference_mode()
@@ -746,10 +748,11 @@ def _assemble_fullres_page(quads_orig, ss, rs) -> "OcrResult":
     """(quads, scores, RecResults) -> OcrResult in reading order."""
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
 
-    return OcrResult(lines=[
-        OcrLine(box=DetBox(quads_orig[k], ss[k]), text=rs[k].text,
-                confidence=rs[k].confidence)
-        for k in reading_order(quads_orig, [r.flipped for r in rs])])
+    with stage("assemble", device=False):
+        return OcrResult(lines=[
+            OcrLine(box=DetBox(quads_orig[k], ss[k]), text=rs[k].text,
+                    confidence=rs[k].confidence)
+            for k in reading_order(quads_orig, [r.flipped for r in rs])])
 
 
 def _ocr_from_original(engine, img, scale, boxes, scores, idx,

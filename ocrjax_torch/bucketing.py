@@ -36,7 +36,8 @@ import torch
 from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
-from ocrjax_torch.utils.profiling import add_bytes, current, stage
+from ocrjax_torch.utils.profiling import (add_bytes, carry, current,
+                                           stage)
 
 
 def assign_width_buckets(est_widths: np.ndarray, buckets: Sequence[int]
@@ -108,27 +109,29 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
                                       unpack_rec, unpack_rec_flip, upload)
 
     cfg = engine.config
-    warp_src = quads
-    # width estimate from the TIGHT quads, with headroom: the ink
-    # refinement rescales the band to full strip height
-    est_w = _estimate_strip_widths(quads, cfg.rec_height)
-    if cfg.rec_snap_to_ink:
-        est_w = est_w * 1.25
-    if cfg.rec_snap_to_ink and cfg.rec_crop_margin > 0:
-        warp_src = warp_lib.expand_quads_host(
-            quads, cfg.rec_crop_margin, cfg.rec_crop_margin, bounds=b_all)
+    # the host's plan: width buckets, quad expansion, warp kind, chunks
+    with stage("rec_plan", device=False):
+        warp_src = quads
+        # width estimate from the TIGHT quads, with headroom: the ink
+        # refinement rescales the band to full strip height
+        est_w = _estimate_strip_widths(quads, cfg.rec_height)
+        if cfg.rec_snap_to_ink:
+            est_w = est_w * 1.25
+        if cfg.rec_snap_to_ink and cfg.rec_crop_margin > 0:
+            warp_src = warp_lib.expand_quads_host(
+                quads, cfg.rec_crop_margin, cfg.rec_crop_margin, bounds=b_all)
 
-    cap = cfg.line_batch_buckets[-1]
-    sep_ok = (sep_warp_mask(quads, warp_src, cfg,
-                            page_h=int(gray_dev.shape[1]))
-              if cfg.pooled_sep_warp else np.zeros(len(quads), bool))
-    chunks = []
-    for bucket_w, idx_all in assign_width_buckets(
-            est_w, cfg.rec_width_buckets).items():
-        for sep in (True, False):
-            gidx = idx_all[sep_ok[idx_all] == sep]
-            for lo in range(0, len(gidx), cap):
-                chunks.append((bucket_w, gidx[lo:lo + cap], sep))
+        cap = cfg.line_batch_buckets[-1]
+        sep_ok = (sep_warp_mask(quads, warp_src, cfg,
+                                page_h=int(gray_dev.shape[1]))
+                  if cfg.pooled_sep_warp else np.zeros(len(quads), bool))
+        chunks = []
+        for bucket_w, idx_all in assign_width_buckets(
+                est_w, cfg.rec_width_buckets).items():
+            for sep in (True, False):
+                gidx = idx_all[sep_ok[idx_all] == sep]
+                for lo in range(0, len(gidx), cap):
+                    chunks.append((bucket_w, gidx[lo:lo + cap], sep))
 
     def padded(idx):  # pad rows repeat the last quad; never read back
         return np.concatenate([idx, np.repeat(idx[-1:],
@@ -320,74 +323,83 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
     # chunk k + 1 decodes on the fused lane's lookahead thread while chunk
     # k is uploaded and dispatched
     bounds = [(lo, min(lo + C, B)) for lo in range(0, B, C)]
-    pending_decode = _get_prefetch_pool().submit(decode, *bounds[0])
+    with stage("decode_submit", device=False):
+        pending_decode = _get_prefetch_pool().submit(carry(decode),
+                                                     *bounds[0])
     chunk_devs, cands = [], []
     for ci, (lo, hi) in enumerate(bounds):
         with stage("host_decode"):
             grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], _ = \
                 pending_decode.result()
         if ci + 1 < len(bounds):
-            pending_decode = _get_prefetch_pool().submit(
-                decode, *bounds[ci + 1])
+            with stage("decode_submit", device=False):
+                pending_decode = _get_prefetch_pool().submit(
+                    carry(decode), *bounds[ci + 1])
         with stage("det_dispatch"):
             dev = upload(engine, preprocess.pack_for_upload(grays, cfg))
             chunk_devs.append(dev)
             cands.append(pack_det(st.forward(dev)[1]))
     with stage("det_fetch"):
         boxes, scores, valid = fetch_det(cands, cfg, timer=current())
-    for i in range(B):
-        nh, nw = valid_hw[i]
-        cx = boxes[i, :, :, 0].mean(axis=1)
-        cy = boxes[i, :, :, 1].mean(axis=1)
-        valid[i] &= ok[i] & (cx < nw) & (cy < nh)
-
-    rot90_pages = []
-    if _allow_rot90:
+    # the host's plan of the lines: candidates in each page's valid
+    # region, landscape and downscaled pages routed off, the pooled list
+    with stage("rec_plan", device=False):
         for i in range(B):
-            j = np.where(valid[i])[0]
-            if len(j) and _is_landscape(cfg, boxes[i, j]):
-                rot90_pages.append(i)
+            nh, nw = valid_hw[i]
+            cx = boxes[i, :, :, 0].mean(axis=1)
+            cy = boxes[i, :, :, 1].mean(axis=1)
+            valid[i] &= ok[i] & (cx < nw) & (cy < nh)
+
+        rot90_pages = []
+        if _allow_rot90:
+            for i in range(B):
+                j = np.where(valid[i])[0]
+                if len(j) and _is_landscape(cfg, boxes[i, j]):
+                    rot90_pages.append(i)
+                    valid[i] = False
+
+        # full-resolution lane for downscaled pages
+        down_items = []
+        for i in range(B):
+            if ok[i] and scales[i] < 0.999 and valid[i].any():
+                down_items.append((i, originals[i], scales[i], boxes[i],
+                                   scores[i], np.where(valid[i])[0]))
                 valid[i] = False
 
-    # full-resolution lane for downscaled pages
-    down_items = []
-    for i in range(B):
-        if ok[i] and scales[i] < 0.999 and valid[i].any():
-            down_items.append((i, originals[i], scales[i], boxes[i],
-                               scores[i], np.where(valid[i])[0]))
-            valid[i] = False
-
-    page_ids, quads, qscores, slots = [], [], [], []
-    for i in range(B):
-        for j in np.where(valid[i])[0]:
-            slots.append((i, len(quads)))
-            page_ids.append(i)
-            quads.append(boxes[i, j])
-            qscores.append(scores[i, j])
+        page_ids, quads, qscores, slots = [], [], [], []
+        for i in range(B):
+            for j in np.where(valid[i])[0]:
+                slots.append((i, len(quads)))
+                page_ids.append(i)
+                quads.append(boxes[i, j])
+                qscores.append(scores[i, j])
+        if quads:
+            page_ids = np.asarray(page_ids, np.int32)
+            quads = np.asarray(quads, np.float32)
+            # per-quad bounds: the page's valid region, not its padding
+            b_all = (valid_hw[page_ids][:, ::-1].astype(np.float32)
+                     - 1.0)[:, None, :]
     results: List[List[OcrLine]] = [[] for _ in range(B)]
 
-    if quads:
-        page_ids = np.asarray(page_ids, np.int32)
-        quads = np.asarray(quads, np.float32)
-        # per-quad bounds: that page's valid region (never canvas padding)
-        b_all = (valid_hw[page_ids][:, ::-1].astype(np.float32)
-                 - 1.0)[:, None, :]
+    if len(quads):
         with torch.inference_mode(), stage("warp_norm"), \
                 stage("warp_refine"):
             gray_dev = stack_pages(engine, chunk_devs)
         texts, confs, flips = recognize_pooled(
             engine, gray_dev, page_ids, quads, b_all, beam=beam)
-        for i in range(B):
-            mine = [s for (p, s) in slots if p == i]
-            if not mine:
-                continue
-            page_quads = [geometry.scale_quads(quads[s], scales[i])
-                          for s in mine]
-            results[i] = [
-                OcrLine(box=DetBox(page_quads[k], float(qscores[mine[k]])),
-                        text=texts[mine[k]], confidence=confs[mine[k]])
-                for k in reading_order(page_quads,
-                                       [flips[s] for s in mine])]
+        with stage("assemble", device=False):
+            for i in range(B):
+                mine = [s for (p, s) in slots if p == i]
+                if not mine:
+                    continue
+                page_quads = [geometry.scale_quads(quads[s], scales[i])
+                              for s in mine]
+                results[i] = [
+                    OcrLine(box=DetBox(page_quads[k],
+                                       float(qscores[mine[k]])),
+                            text=texts[mine[k]], confidence=confs[mine[k]])
+                    for k in reading_order(page_quads,
+                                           [flips[s] for s in mine])]
     for i, res in pooled_fullres_from_boxes(engine, down_items, beam=beam):
         results[i] = res.lines
     if rot90_pages:

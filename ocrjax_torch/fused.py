@@ -37,7 +37,7 @@ from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
-from ocrjax_torch.utils.profiling import add_bytes, stage
+from ocrjax_torch.utils.profiling import add_bytes, carry, stage
 
 
 def top_k(score: torch.Tensor, k: int):
@@ -283,7 +283,8 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
 
     Host pipeline (the reference's): chunk k + 1 decodes on the lookahead
     thread while chunk k is packed, uploaded and dispatched
-    (host_decode times only the wait for it); right after each dispatch
+    (host_decode times only the wait for it, decode each page's work on the
+    decode threads); right after each dispatch
     its rows' first fetch_max_tokens token columns start their copy to
     the host (fused_dispatch); fused_fetch reads them and refetches the
     full rows of a chunk where a line has more tokens. A chunk that ran
@@ -298,14 +299,15 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     B = len(images)
     if B == 0:
         return []
-    fused = _fused_for(engine, K, W, beam, separable_warp)
+    with stage("lookup", device=False):      # the programs' caches
+        fused = _fused_for(engine, K, W, beam, separable_warp)
+        truncate = graphs.program(engine, "truncate_tokens",
+                                  bytepack.truncate_tokens)
     if cfg.rec_try_flip:
         engine.warn_untrained_cls()
     thr = api_det.upload_thresholds(engine)
     T = cfg.rec_max_tokens
     T_f = cfg.fetch_max_tokens if 0 < cfg.fetch_max_tokens < T else 0
-    truncate = graphs.program(engine, "truncate_tokens",
-                              bytepack.truncate_tokens)
 
     def dispatch(packed: np.ndarray, wh: np.ndarray) -> torch.Tensor:
         # a copy of the program's static output: the next chunk's replay
@@ -344,7 +346,8 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     colorful = set()
     bounds = [(lo, min(lo + C, B)) for lo in range(0, B, C)]
     prefetch = _get_prefetch_pool()
-    pending_decode = prefetch.submit(decode, *bounds[0])
+    with stage("decode_submit", device=False):
+        pending_decode = prefetch.submit(carry(decode), *bounds[0])
     outs, copies, inputs = [], [], []
     for ci, (lo, hi) in enumerate(bounds):
         with stage("host_decode"):
@@ -352,7 +355,9 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
                 pending_decode.result()
             colorful.update(lo + j for j, c in enumerate(col) if c)
         if ci + 1 < len(bounds):
-            pending_decode = prefetch.submit(decode, *bounds[ci + 1])
+            with stage("decode_submit", device=False):
+                pending_decode = prefetch.submit(carry(decode),
+                                                 *bounds[ci + 1])
         wh = valid_hw[lo:hi, ::-1].astype(np.float32).copy()
         with stage("fused_dispatch"):
             packed = preprocess.pack_for_upload(grays, cfg)
@@ -381,59 +386,59 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
                 bytepack.refetches["fused_fetch"] += 1
                 c = unpack_fused(full, K, T, cfg.rec_try_flip)
             chunks.append(c)
-    if len(chunks) == 1:
-        out = chunks[0]
-    else:   # token widths differ where a chunk was refetched at T
-        tw = max(c["tokens"].shape[2] for c in chunks)
-        out = {k: np.concatenate([
-            np.pad(c[k], ((0, 0), (0, 0), (0, tw - c[k].shape[2])))
-            if k == "tokens" else c[k] for c in chunks])
-            for k in chunks[0]}
-
     results: List[OcrResult] = []
     reroute: List[int] = []
-    for i in range(B):
-        if not ok[i]:
-            results.append(OcrResult(lines=[]))
-            continue
-        if i in colorful:
-            # colour reroute: 601 luma can wash saturated ink out, so the
-            # page runs the staged lane over min-channel luma
-            results.append(api_det.ocr(engine, images[i], beam=beam,
-                                       color=True))
-            continue
-        nh, nw = valid_hw[i]
-        valid = out["valid"][i]
-        quads = out["quads"][i]
-        vq = quads[valid]
-        if len(vq):
-            ctr = vq.mean(axis=1)
-            vq = vq[(ctr[:, 0] < nw) & (ctr[:, 1] < nh)]
-        if (cfg.fused_rotation_reroute_deg > 0 and len(vq)
-                and should_reroute_rotation(vq, cfg)):
-            reroute.append(i)
-            results.append(None)   # filled by the redo below
-            continue
-        qs, metas = [], []
-        for k in np.where(valid)[0]:
-            q = quads[k]
-            if not (q[:, 0].mean() < nw and q[:, 1].mean() < nh):
-                continue  # canvas-padding artifact
-            qs.append(geometry.scale_quads(q, scales[i]))
-            metas.append(k)
-        lines = []
-        for j in api_det.reading_order(
-                qs, [out["flipped"][i, k] for k in metas]):
-            k = metas[j]
-            text = engine.charset.decode(
-                out["tokens"][i, k][: out["n_tokens"][i, k]])
-            lines.append(OcrLine(
-                box=DetBox(qs[j], float(out["scores"][i, k])),
-                text=text, confidence=float(out["conf"][i, k])))
-        # all K slots valid (before the artifact filter): the page may hold
-        # more lines than the fused capacity
-        results.append(OcrResult(lines=lines,
-                                 truncated=bool(valid.sum() >= K)))
+    with stage("assemble", device=False):
+        if len(chunks) == 1:
+            out = chunks[0]
+        else:   # token widths differ where a chunk was refetched at T
+            tw = max(c["tokens"].shape[2] for c in chunks)
+            out = {k: np.concatenate([
+                np.pad(c[k], ((0, 0), (0, 0), (0, tw - c[k].shape[2])))
+                if k == "tokens" else c[k] for c in chunks])
+                for k in chunks[0]}
+        for i in range(B):
+            if not ok[i]:
+                results.append(OcrResult(lines=[]))
+                continue
+            if i in colorful:
+                # colour reroute: 601 luma can wash saturated ink out, so
+                # the page runs the staged lane over min-channel luma
+                results.append(api_det.ocr(engine, images[i], beam=beam,
+                                           color=True))
+                continue
+            nh, nw = valid_hw[i]
+            valid = out["valid"][i]
+            quads = out["quads"][i]
+            vq = quads[valid]
+            if len(vq):
+                ctr = vq.mean(axis=1)
+                vq = vq[(ctr[:, 0] < nw) & (ctr[:, 1] < nh)]
+            if (cfg.fused_rotation_reroute_deg > 0 and len(vq)
+                    and should_reroute_rotation(vq, cfg)):
+                reroute.append(i)
+                results.append(None)   # filled by the redo below
+                continue
+            qs, metas = [], []
+            for k in np.where(valid)[0]:
+                q = quads[k]
+                if not (q[:, 0].mean() < nw and q[:, 1].mean() < nh):
+                    continue  # canvas-padding artifact
+                qs.append(geometry.scale_quads(q, scales[i]))
+                metas.append(k)
+            lines = []
+            for j in api_det.reading_order(
+                    qs, [out["flipped"][i, k] for k in metas]):
+                k = metas[j]
+                text = engine.charset.decode(
+                    out["tokens"][i, k][: out["n_tokens"][i, k]])
+                lines.append(OcrLine(
+                    box=DetBox(qs[j], float(out["scores"][i, k])),
+                    text=text, confidence=float(out["conf"][i, k])))
+            # all K slots valid (before the artifact filter): the page may
+            # hold more lines than the fused capacity
+            results.append(OcrResult(lines=lines,
+                                     truncated=bool(valid.sum() >= K)))
 
     # tilted and saturated pages are redone as ONE pooled batch on the
     # bucketed lane (exact homography crops, unbounded line count);

@@ -386,6 +386,12 @@ class Program:
         return contextlib.nullcontext()
 
     def _capture(self, key, args, kw, backend, dev):
+        # a stage of its own, opened before the capture hook is set: a
+        # capture inside a timed window is a stall that set-up left
+        with profiling.stage("graph_capture", device=False):
+            return self._capture_run(key, args, kw, backend, dev)
+
+    def _capture_run(self, key, args, kw, backend, dev):
         t0 = time.perf_counter()
         g = device_graphs(backend, dev)
         shared = list(g.shared.values())

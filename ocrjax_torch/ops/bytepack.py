@@ -19,7 +19,8 @@ bytes_to_f32 reads them back with numpy on the host.
 HostCopy is the copy itself. On the card it is a non-blocking copy into
 pinned host memory, ordered by a CUDA event that the host waits on before
 it reads, so the copy runs while the host decodes and dispatches the next
-chunk. A tensor on the CPU needs no copy.
+chunk. A tensor on the CPU needs no copy. The host's wait on the event
+is the stage fetch_wait.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import collections
 
 import numpy as np
 import torch
+
+from ocrjax_torch.utils.profiling import stage
 
 # full refetches of truncated payloads, by the stage that made them
 # ("fused_fetch", "rec_fetch_decode", "det_fetch", "tile_det_fetch"): a
@@ -93,7 +96,8 @@ class HostCopy:
 
     def result(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()
+            with stage("fetch_wait", device=False):
+                self.event.synchronize()
         return self.buf.numpy()
 
 

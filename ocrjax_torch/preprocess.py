@@ -42,6 +42,7 @@ from ocrjax_torch import imageio
 from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.postprocess import native_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
+from ocrjax_torch.utils.profiling import carry, host_stage, stage
 
 # what took the native library: "pack" calls and "decode" pages (counted
 # on the calling thread, after the decode pool)
@@ -65,6 +66,11 @@ def is_inverted(img: np.ndarray, thresh: int = 128, stride: int = 4) -> bool:
 
 def load_image(image: ImageLike, auto_invert: bool = True) -> np.ndarray:
     """Path or uint8 array -> uint8 RGB HWC, dark ink on light paper."""
+    with stage("load_image", device=False):
+        return _load_image(image, auto_invert)
+
+
+def _load_image(image: ImageLike, auto_invert: bool) -> np.ndarray:
     if isinstance(image, str):
         img = imageio.read_image(image)
     else:
@@ -316,7 +322,8 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
     its native decode; with a gray_fn the canvas is resized in RGB and then
     projected. originals_out: optional dict; downscaled pages (scale < 1)
     store their canonical full-resolution RGB original under their `idxs`
-    key, for the full-resolution recognition lane.
+    key, for the full-resolution recognition lane. Each page's work is the
+    host stage `decode` of the call that submitted the chunk.
     """
     idxs = list(idxs)
     n = len(idxs)
@@ -329,6 +336,10 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
     took_native = [False] * n
 
     def work(j):
+        with host_stage("decode"):
+            decode_page(j)
+
+    def decode_page(j):
         i = idxs[j]
         try:
             im = images[i]
@@ -370,7 +381,7 @@ def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,
     if n == 1:
         work(0)
     else:
-        list(_get_decode_pool().map(work, range(n)))
+        list(_get_decode_pool().map(carry(work), range(n)))
     native_calls["decode"] += sum(took_native)
     return grays, scales, valid_hw, ok, colorful
 
@@ -442,7 +453,8 @@ def unpack_nibbles_host(packed: np.ndarray) -> np.ndarray:
 
 
 def pack_for_upload(gray: np.ndarray, cfg: OcrConfig) -> np.ndarray:
-    return pack_nibbles(gray) if cfg.upload_bits == 4 else gray
+    with stage("pack", device=False):
+        return pack_nibbles(gray) if cfg.upload_bits == 4 else gray
 
 
 # ---------------------------------------------------------------------------

@@ -22,8 +22,10 @@ through api_det.fetch_det's truncated first fetch. Dense tiles overflow
 its prefix every time, so an engine-scoped latch (_det_fetch_adapt)
 switches the stream to whole-row fetches after an overflow and back once
 a fetch is sparse again. Host stages, as the reference names them:
-tile_prep, tile_det_dispatch, tile_det_fetch, tile_seam_merge,
-tile_assign, tile_host_fallback, tile_assembly.
+tile_prep (the wait for the prep thread), tile_det_dispatch,
+tile_det_fetch, tile_seam_merge, tile_assign, tile_host_fallback,
+tile_assembly; the prep thread's work on each page is the host stage
+tile_prep_work.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
-from ocrjax_torch.utils.profiling import current, stage
+from ocrjax_torch.utils.profiling import carry, current, host_stage, stage
 
 
 def axis_plan(total: int, tile: int, overlap: int, quantum: int
@@ -493,21 +495,22 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
     area_terms = cfg.upload_bits / 8.0 + 12.0
 
     def prep(i):
-        try:
-            img = preprocess.load_image(images[i],
-                                        auto_invert=cfg.auto_invert)
-            return (i, img) + _prep_page(engine, img)
-        except (FileNotFoundError, ValueError, OSError):
-            return (i, None, None, None)
+        with host_stage("tile_prep_work"):
+            try:
+                img = preprocess.load_image(images[i],
+                                            auto_invert=cfg.auto_invert)
+                return (i, img) + _prep_page(engine, img)
+            except (FileNotFoundError, ValueError, OSError):
+                return (i, None, None, None)
 
     def iter_windows():
         pool = _get_prefetch_pool()
-        fut = pool.submit(prep, 0) if B else None
+        fut = pool.submit(carry(prep), 0) if B else None
         window, budget, first = [], 0.0, B > 1
         for i in range(B):
             with stage("tile_prep"):
                 page = fut.result()
-            fut = pool.submit(prep, i + 1) if i + 1 < B else None
+            fut = pool.submit(carry(prep), i + 1) if i + 1 < B else None
             if page[1] is None:
                 results[page[0]] = OcrResult(lines=[])
                 continue
