@@ -33,8 +33,10 @@ Phases, in order; any failure exits non-zero:
      float32 outputs on the same pages (identical strings and order, boxes
      within 0.011 px, scores within 2e-3);
   3. fused lane in bfloat16 (the shipped compute dtype): pages/s, device
-     time per stage, and the share of lines whose strings equal the float32
-     run's (at least 0.9);
+     time per stage, the share of the line slots recognized
+     (fused.slot_counts: at least the occupied ones, fewer than all), and
+     the share of lines whose strings equal the float32 run's (at least
+     0.9);
   4. conv bench: ocrjax_torch.bench_conv.run() at the 12 shapes (the
      kernel the wrapper picks and the general kernel in turns, cuDNN and
      plain times) with each shape's lower bound; the picked kernels must sum
@@ -816,6 +818,7 @@ def phase_fp32(pages, expected, counters):
 
 def phase_bf16(pages, fp32_results, counters, reps: int = 3):
     import torch
+    from ocrjax_torch import fused as F
     from ocrjax_torch.api import OcrEngine
     from ocrjax_torch.utils.profiling import StageTimer
     eng = OcrEngine.from_pretrained()
@@ -823,11 +826,14 @@ def phase_bf16(pages, fp32_results, counters, reps: int = 3):
     eng.ocr_batch(pages, fused=True)                       # warm-up
     torch.cuda.synchronize()
     reset(counters)
+    slots0 = dict(F.slot_counts)
     t0 = time.perf_counter()
     for _ in range(reps):
         results = eng.ocr_batch(pages, fused=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    slots = {k: F.slot_counts[k] - slots0.get(k, 0)
+             for k in ("chunks", "slots", "occupied", "recognized")}
     launches = read(counters, "fused bfloat16", ["label_components_cuda"])
     ccl_by_path = only_path("fused bfloat16", "shared")
     timer = StageTimer()
@@ -852,6 +858,12 @@ def phase_bf16(pages, fp32_results, counters, reps: int = 3):
     pages_s = len(pages) * reps / wall
     print(f"  bf16: {pages_s:.2f} pages/s ({reps} x {len(pages)} pages, "
           f"host clock, {wall:.3f} s)")
+    # the fused lane recognizes the occupied slots at their count bucket
+    print(f"  fused slots: {slots['recognized']} of {slots['slots']} "
+          f"recognized ({100 * slots['recognized'] / slots['slots']:.1f}%), "
+          f"{slots['occupied']} occupied, {slots['chunks']} chunks")
+    if not slots["occupied"] <= slots["recognized"] < slots["slots"]:
+        fail(f"fused slots: {slots}")
     print("  bf16 stage device ms per 16-page chunk: "
           + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     print(f"  host per 16-page chunk: decode+luma {(t1 - t0) * 1e3:.2f} ms,"
@@ -4022,9 +4034,11 @@ def phase_transport(counters, smi: str, bench: dict, parallel: dict) -> tuple:
     for lane in ("fused", "bucketed"):
         rep = bench["stages_last_window"][lane]
         seen.update(rep["host_ms"])
+        # host steps and call spans have no device ms
         dev = rep["device_ms"]
         rows = {k: [v["total_ms"], v["calls"], v.get("mb"),
-                    dev[k] if isinstance(dev[k], str) else round(dev[k], 3)]
+                    round(dev[k], 3) if isinstance(dev.get(k), float)
+                    else dev.get(k)]
                 for k, v in sorted(rep["host_ms"].items(),
                                    key=lambda kv: -kv[1]["total_ms"])}
         print(f"    {lane}: " + json.dumps(rows))
@@ -4381,11 +4395,12 @@ def phase_graphs(counters, smi: str) -> tuple:
     record["stages"] = stage_rows
 
     # (d) kernels per chunk, eager against graphed, over the static inputs
-    # of a real chunk (the bench's 16-page fused chunk, its largest
-    # pooled recognition chunk, its detector chunk)
+    # of a real chunk (the bench's 16-page fused chunk's two programs, its
+    # largest pooled recognition chunk, its detector chunk)
     print(f"  (d) launches a chunk, torch.profiler, bf16 ({smi})")
     counts = {}
-    for name, arg in (("fused", 0), ("rec_chunk", 2), ("det", 0)):
+    for name, arg in (("fused", 0), ("fused_rec", 0), ("rec_chunk", 2),
+                      ("det", 0)):
         prog = _program(eb, name)
         entry = max(prog.entries.values(),
                     key=lambda en: en.static_in[arg].shape[0])

@@ -10,9 +10,11 @@ Usage:
 
 It runs on the card; --cpu runs it on the CPU instead, and without CUDA and
 without --cpu it fails with the engine's error. --profile DIR writes a
-torch.profiler trace there. --viz draws with PIL and exits 2 where PIL is
-absent. `bench` runs bench_lib.run_bench on the committed traffic (or
---traffic FILE) and prints its report as one JSON line.
+torch.profiler trace there (and, after a run of the fused lane, prints
+the share of its line slots recognized to stderr). --viz draws with PIL
+and exits 2 where PIL is absent. `bench` runs bench_lib.run_bench on the
+committed traffic (or --traffic FILE) and prints its report as one JSON
+line.
 """
 
 from __future__ import annotations
@@ -152,13 +154,26 @@ def _make_engine(args):
     return engine
 
 
+@contextlib.contextmanager
 def _profiled(args):
     """utils.profiling.device_trace over the run when --profile DIR: its
-    Chrome trace is written to DIR."""
+    Chrome trace is written to DIR, and where the fused lane ran, the
+    share of its line slots that it recognized goes to stderr."""
     if not args.profile:
-        return contextlib.nullcontext()
+        yield
+        return
+    from ocrjax_torch.fused import slot_counts
     from ocrjax_torch.utils.profiling import device_trace
-    return device_trace(args.profile, "cpu" if args.cpu else "cuda")
+    before = dict(slot_counts)
+    with device_trace(args.profile, "cpu" if args.cpu else "cuda"):
+        yield
+    n = {k: slot_counts[k] - before.get(k, 0)
+         for k in ("chunks", "slots", "occupied", "recognized")}
+    if n["slots"]:
+        print(f"fused slots: {n['recognized']} of {n['slots']} recognized "
+              f"({100 * n['recognized'] / n['slots']:.1f}%), "
+              f"{n['occupied']} occupied, {n['chunks']} chunks",
+              file=sys.stderr)
 
 
 def _quad_list(quad) -> List[List[float]]:

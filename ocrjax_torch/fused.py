@@ -3,17 +3,23 @@ lines -> separable warp (or the exact homography warp), ink refine, re-warp
 -> [dewarp] -> [orientation stage] -> CRNN -> greedy or beam CTC, on the
 device, for a chunk of pages at a time (port of ocrjax/fused.py).
 
-The reference compiles this as one XLA program; here `FusedOcr` is a
-graphs.Program: captured on the card once per (pages a chunk, canvas
-shape, upload format) as CUDA graphs, one a stage, and replayed from then
-on, with the four detection thresholds a (4,) device tensor so that a
-sweep replays the same graphs. Both end the same way: every output of a
-page packed into one row (uint8 under cfg.fetch_bytes, ops.bytepack;
+The reference compiles this as one XLA program; here `FusedOcr` is two
+graphs.Programs, each captured on the card once per key as CUDA graphs,
+one a stage, and replayed from then on, with the four detection
+thresholds a (4,) device tensor so that a sweep replays the same graphs.
+The first detects and warps every line slot (pages a chunk times K) and
+counts the occupied ones; the host reads the count, and the second runs
+the CRNN and CTC on the occupied slots alone, gathered on the card, at
+their count bucket (the reference recognizes every slot and the host
+drops the empty ones). Both end the same way: every output of a page
+packed into one row (uint8 under cfg.fetch_bytes, ops.bytepack;
 unpack_fused reads it), so the host makes one copy a chunk. The host side
 is the reference's pipeline: chunk k + 1 decodes on a lookahead thread
 while chunk k is dispatched, each chunk's copy to the host (its first
 fetch_max_tokens token columns a line) starts right after its dispatch,
-and a chunk with a longer line is refetched whole.
+and a chunk with a longer line is refetched whole. Chunk k's count is read
+after chunk k + 1 is packed, so that the card has run chunk k's detection
+by then.
 
 ocr_pages_fused redoes, as the reference does, the pages this lane cannot
 answer: a colour page on the staged lane over min-channel luma, tilted
@@ -25,8 +31,9 @@ scan reroutes to the staged lane, whose 90-degree redo rotates it.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +54,38 @@ def top_k(score: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def rec_row_chunks(cfg, n: int, slots: int) -> Tuple[int, ...]:
+    """Rows of each CRNN pass over a chunk's n occupied slots (of `slots`):
+    passes of the largest line-count bucket while more remain, the rest at
+    its bucket, never past the chunk's slots."""
+    sizes, off = [], 0
+    while off < n:
+        sizes.append(min(cfg.line_bucket_for_count(n - off), slots - off))
+        off += sizes[-1]
+    return tuple(sizes)
+
+
+# the fused lane's slots, summed over the chunks it recognized: "chunks",
+# "slots" (B * K a chunk), "occupied" (valid line slots) and "recognized"
+# (the rows the CRNN ran on); recognized / slots is the share of the
+# slots recognized
+slot_counts: collections.Counter = collections.Counter()
+
+
 class FusedOcr:
-    """Device program of the fused lane for one (K, bucket width, greedy or
-    beam, warp kind) and the engine's config at construction.
+    """Device programs of the fused lane for one (K, bucket width, greedy
+    or beam, warp kind) and the engine's config at construction.
     separable_warp=False takes the exact homography warp grouped per page
     and the homography ink refine in place of the separable AABB crop and
-    its AABB refine (the reference's make_fused_ocr_fn switch)."""
+    its AABB refine (the reference's make_fused_ocr_fn switch).
+
+    Two programs a chunk. `program` detects, warps the top-K line slots of
+    every page (and classifies them under rec_try_flip) and counts the
+    occupied slots; `rec_program` gathers the occupied slots, runs the
+    CRNN and CTC on them at their count bucket (rec_row_chunks) and puts
+    the results back in their slots of the packed rows, every empty slot
+    0. The host reads the count in between: detect, count, recognize
+    (ocr_pages_fused reads it once the next chunk is packed)."""
 
     def __init__(self, engine, lines_per_page: int = 32,
                  bucket_width: int = 320, beam: bool = False,
@@ -63,10 +96,11 @@ class FusedOcr:
         self.W = bucket_width
         self.beam = beam
         self.separable_warp = separable_warp
-        self.program = graphs.Program(self._run, "fused")
+        self.program = graphs.Program(self._detect, "fused")
+        self.rec_program = graphs.Program(self._recognize, "fused_rec")
 
     def programs(self):
-        return (self.program,)
+        return (self.program, self.rec_program)
 
     def __call__(self, gray_up: torch.Tensor, thr, valid_wh: torch.Tensor
                  ) -> torch.Tensor:
@@ -83,19 +117,48 @@ class FusedOcr:
         (B, K * (T + 42)) uint8, one more K columns under rec_try_flip,
         with cfg.fetch_bytes; else tokens, n_tokens, conf, quads,
         scores, valid, [flipped] as (B, K * (T + 12)) float32, one more
-        K with rec_try_flip."""
+        K with rec_try_flip. An empty slot's tokens, n_tokens and conf
+        read 0."""
+        det = self.detect(gray_up, thr, valid_wh)
+        return self.recognize(det, self.count(det))
+
+    def detect(self, gray_up: torch.Tensor, thr, valid_wh: torch.Tensor):
+        """The first program (arguments as __call__'s), and the copy of its
+        occupied-slot count to the host started behind it: the handle
+        that count() and recognize() take."""
         from ocrjax_torch.api_det import det_state, upload
         if not isinstance(thr, torch.Tensor):
             thr = upload(self.engine, np.asarray(thr, np.float32))
         # the detector is built at its first use, its weights copied to
         # the card: that happens here, not inside the program
         det_state(self.engine)
-        return self.program(gray_up, thr, valid_wh)
+        out = self.program(gray_up, thr, valid_wh)
+        return out, bytepack.HostCopy(out[-1])
+
+    @staticmethod
+    def count(det) -> int:
+        """The chunk's occupied slots, read on the host (fused_count: the
+        wait for the first program where it has not finished)."""
+        return int(det[1].result("fused_count")[0])
+
+    def recognize(self, det, n_valid: int) -> torch.Tensor:
+        """The second program over detect()'s outputs, at n_valid's row
+        chunks -> the packed rows (__call__). No call of the first
+        program of the same shape may come between detect() and this."""
+        out = det[0][:-1]
+        slots = out[0].shape[0]
+        sizes = rec_row_chunks(self.cfg, n_valid, slots)
+        slot_counts.update(chunks=1, slots=slots, occupied=n_valid,
+                           recognized=sum(sizes))
+        return self.rec_program(*out, sizes)
 
     @torch.inference_mode()
-    def _run(self, gray_up: torch.Tensor, thr: torch.Tensor,
-             valid_wh: torch.Tensor) -> torch.Tensor:
-        from ocrjax_torch.api_det import _cls_flip_strips, crnn_decode
+    def _detect(self, gray_up: torch.Tensor, thr: torch.Tensor,
+                valid_wh: torch.Tensor):
+        """-> strips (B*K, H, W), widths (B*K,), order (B*K,): the slots,
+        occupied first, line_valid (B, K), flip (B*K,), quads (B, K, 4,
+        2), scores (B, K), n_valid (1,) int32."""
+        from ocrjax_torch.api_det import _cls_flip_strips
         cfg, eng, K = self.cfg, self.engine, self.K
         H = cfg.rec_height
         B = gray_up.shape[0]
@@ -165,8 +228,44 @@ class FusedOcr:
                 prior_weights=widths * line_valid.reshape(B * K))
         else:
             flip = torch.zeros(B * K, dtype=torch.bool, device=strips.device)
-        tokens, n_tokens, conf = crnn_decode(eng, strips, widths, self.beam)
-        T = cfg.rec_max_tokens
+        # the occupied slots first, in slot order
+        order = torch.argsort(~line_valid.reshape(B * K), stable=True)
+        n_valid = line_valid.sum().reshape(1).to(torch.int32)
+        return (strips, widths, order, line_valid, flip, quads, top_s,
+                n_valid)
+
+    @torch.inference_mode()
+    def _recognize(self, strips: torch.Tensor, widths: torch.Tensor,
+                   order: torch.Tensor, line_valid: torch.Tensor,
+                   flip: torch.Tensor, quads: torch.Tensor,
+                   top_s: torch.Tensor, sizes: Tuple[int, ...]
+                   ) -> torch.Tensor:
+        from ocrjax_torch.api_det import crnn_decode
+        cfg, eng, K = self.cfg, self.engine, self.K
+        B, T = line_valid.shape[0], cfg.rec_max_tokens
+        dev = strips.device
+        passes, off = [], 0
+        for n in sizes:
+            idx = order[off:off + n]
+            passes.append(crnn_decode(eng, strips[idx], widths[idx],
+                                      self.beam))
+            off += n
+        if passes:
+            rows = [torch.cat(r) for r in zip(*passes)]
+        else:                                   # no occupied slot
+            rows = [torch.zeros((0, T), dtype=torch.int32, device=dev),
+                    torch.zeros(0, dtype=torch.int32, device=dev),
+                    torch.zeros(0, dtype=torch.float32, device=dev)]
+        # back to the slots: a slot's row sits at its rank in `order`;
+        # the slots past the recognized rows, and every empty slot, read 0
+        rank = torch.argsort(order)
+        keep = line_valid.reshape(B * K)
+
+        def to_slots(r):
+            r = torch.cat([r, r.new_zeros((B * K - off,) + r.shape[1:])])
+            return torch.where(keep.reshape((-1,) + (1,) * (r.dim() - 1)),
+                               r[rank], 0)
+        tokens, n_tokens, conf = (to_slots(r) for r in rows)
         tokens = tokens.reshape(B, K * T)
         n_tokens, conf, flip = (t.reshape(B, K) for t in (n_tokens, conf,
                                                           flip))
@@ -281,15 +380,16 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     reading order, original image coords. separable_warp=False runs the
     fused program with the exact homography warp (FusedOcr).
 
-    Host pipeline (the reference's): chunk k + 1 decodes on the lookahead
-    thread while chunk k is packed, uploaded and dispatched
-    (host_decode times only the wait for it, decode each page's work on the
-    decode threads); right after each dispatch
-    its rows' first fetch_max_tokens token columns start their copy to
-    the host (fused_dispatch); fused_fetch reads them and refetches the
-    full rows of a chunk where a line has more tokens. A chunk that ran
-    out of device memory at dispatch is redone in halves, up to 3 times,
-    and fetched whole."""
+    Host pipeline: chunk k + 1 decodes on the lookahead thread while chunk
+    k is packed, uploaded and detected (host_decode times only the wait
+    for it, decode each page's work on the decode threads). Chunk k's
+    occupied-slot count is read (fused_count) once chunk k + 1 is decoded,
+    packed and uploaded; then chunk k's recognition is dispatched, its
+    rows' first fetch_max_tokens token columns start their copy to the
+    host, and chunk k + 1's detection follows (fused_dispatch);
+    fused_fetch reads the rows and refetches the full rows of a chunk
+    where a line has more tokens. A chunk that ran out of device memory
+    at dispatch is redone in halves, up to 3 times, and fetched whole."""
     from ocrjax_torch import api_det, bucketing
     from ocrjax_torch.api import DetBox, OcrLine, OcrResult
 
@@ -348,8 +448,12 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     prefetch = _get_prefetch_pool()
     with stage("decode_submit", device=False):
         pending_decode = prefetch.submit(carry(decode), *bounds[0])
-    outs, copies, inputs = [], [], []
-    for ci, (lo, hi) in enumerate(bounds):
+
+    def take(ci: int):
+        """Chunk ci's decode (waited for; the next chunk's submitted), its
+        pack and its upload -> the uploaded (pages, valid (w, h))."""
+        nonlocal pending_decode
+        lo, hi = bounds[ci]
         with stage("host_decode"):
             grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], col = \
                 pending_decode.result()
@@ -361,16 +465,50 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
         wh = valid_hw[lo:hi, ::-1].astype(np.float32).copy()
         with stage("fused_dispatch"):
             packed = preprocess.pack_for_upload(grays, cfg)
+            inputs.append((packed, wh))
+            # the copy to the card queues behind the previous chunk's
+            # detection, and runs while the host wakes from its count
+            return api_det.upload(engine, packed), api_det.upload(engine, wh)
+
+    def detect(up):
+        with stage("fused_dispatch"):
             try:
-                o = dispatch(packed, wh)
+                return fused.detect(up[0], thr, up[1])
             except torch.cuda.OutOfMemoryError:
-                o = None               # redone in halves at fetch time
+                return None            # redone in halves at fetch time
+
+    def recognize(det):
+        """(rows, their copy) of a detected chunk; (None, None) where it
+        ran out of device memory (redone in halves at fetch time)."""
+        if det is None:
+            return None, None
+        n_valid = fused.count(det)
+        with stage("fused_dispatch"):
+            try:
+                # a copy of the program's static output: the next chunk's
+                # replay overwrites that, and a refetch reads this chunk's
+                # rows after it
+                o = fused.recognize(det, n_valid).clone()
+            except torch.cuda.OutOfMemoryError:
+                return None, None
             # this chunk's copy starts now and rides under the next
-            # chunk's decode wait and dispatch
-            copies.append(None if o is None else bytepack.HostCopy(
-                truncate(o, K, T, T_f) if T_f else o))
-            outs.append(o)
-        inputs.append((packed, wh))
+            # chunk's detection
+            return o, bytepack.HostCopy(truncate(o, K, T, T_f) if T_f
+                                        else o)
+
+    # chunk k's count is read once chunk k + 1 is decoded, packed and
+    # uploaded, when the card has run chunk k's detection; stream order
+    # keeps chunk k's strips until its recognition has read them, before
+    # chunk k + 1's detection replays over them
+    outs, copies, inputs = [], [], []
+    det = detect(take(0))
+    for ci in range(len(bounds)):
+        up = take(ci + 1) if ci + 1 < len(bounds) else None
+        o, cp = recognize(det)
+        outs.append(o)
+        copies.append(cp)
+        if up is not None:
+            det = detect(up)
     chunks = []
     with stage("fused_fetch"):
         for o, cp, (packed, wh) in zip(outs, copies, inputs):

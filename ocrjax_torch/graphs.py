@@ -41,6 +41,7 @@ replayed from then on.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 import warnings
@@ -251,6 +252,18 @@ class _Tape:
         self.split(("exit", name))
 
     def record(self, fn: Callable, args, kw):
+        # no collection during a capture: engines and their programs hold
+        # each other, so the collector frees dropped programs' graphs, and
+        # destroying a graph while a stream captures invalidates the capture
+        collect = gc.isenabled()
+        gc.disable()
+        try:
+            return self._record(fn, args, kw)
+        finally:
+            if collect:
+                gc.enable()
+
+    def _record(self, fn: Callable, args, kw):
         self.begin()
         _state.tape = self
         profiling.set_capture_hook(self)
@@ -543,7 +556,7 @@ def all_programs(engine) -> Iterator[Program]:
     """Every program an engine holds: its fused programs, its staged
     detector's, its tile forward's and its own."""
     for f in getattr(engine, "_fused_cache", {}).values():
-        yield f.program
+        yield from f.programs()
     for holder in (getattr(engine, "_det", None),
                    getattr(engine, "_tile_fwd", None)):
         if holder is not None:

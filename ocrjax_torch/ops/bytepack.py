@@ -94,9 +94,11 @@ class HostCopy:
         self.event = torch.cuda.Event()
         self.event.record()
 
-    def result(self) -> np.ndarray:
+    def result(self, wait: str = "fetch_wait") -> np.ndarray:
+        """The copy on the host; `wait` names the host step that waits on
+        the event."""
         if self.event is not None:
-            with stage("fetch_wait", device=False):
+            with stage(wait, device=False):
                 self.event.synchronize()
         return self.buf.numpy()
 

@@ -90,7 +90,8 @@ def main(argv=None) -> None:
             continue
         print("  device ms (CUDA events):")
         for k, _ in order:
-            print(f"  {k:22s} {dev[k]:8.1f} ms")
+            if k in dev:      # host steps and call spans have no events
+                print(f"  {k:22s} {dev[k]:8.1f} ms")
 
     # resident-tile det forward (the device det term of the dense ceiling)
     img0 = preprocess.load_image(imgs[0], auto_invert=cfg.auto_invert)

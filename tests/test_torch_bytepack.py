@@ -12,7 +12,8 @@ Across the packages (the shipped assets in float32 at det_max_side=512):
 ocrjax's unpack_fused, unpack_rec, unpack_rec_flip and unpack_det read
 the port's payloads and the port's unpackers read ocrjax's, to the same
 values; the two packages' payloads on the same inputs agree exactly in
-tokens, counts and flags, and within the goldens bar
+flags and in the tokens and counts of every line (the port's empty fused
+line slots read 0), and within the goldens bar
 (tests/test_goldens.py) in boxes (0.011 px), scores and confidences
 (2e-3).
 """
@@ -248,13 +249,21 @@ def pages_512():
                      for s in (101, 102)])
 
 
-def _close_dicts(a: dict, b: dict, exact=("tokens", "n_tokens", "valid",
-                                            "flipped")):
+def _close_dicts(a: dict, b: dict):
+    """a: the port's rows, b: ocrjax's. Valid and flipped equal in every
+    slot, tokens and counts in every occupied slot; the port recognizes
+    only the occupied slots, so its empty slots' tokens, counts and
+    confidences read 0 (ocrjax's hold what its CRNN read in an empty
+    strip, which no reader uses)."""
     assert set(a) == set(b)
-    for k in exact:
+    for k in ("valid", "flipped"):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     v = a["valid"]
-    assert v.any()
+    assert v.any() and not v.all()
+    for k in ("tokens", "n_tokens"):
+        np.testing.assert_array_equal(a[k][v], b[k][v], err_msg=k)
+    for k in ("tokens", "n_tokens", "conf"):
+        assert not a[k][~v].any(), k
     assert np.abs(a["quads"][v] - b["quads"][v]).max() <= BOX_TOL
     assert np.abs(a["scores"][v] - b["scores"][v]).max() <= SCORE_TOL
     assert np.abs(a["conf"][v] - b["conf"][v]).max() <= SCORE_TOL
@@ -272,7 +281,8 @@ def test_fused_payload_layout_across_packages(asset_engines, pages_512,
                                               fetch_bytes, try_flip):
     """FusedOcr's rows and ocrjax's fused program's rows on the same pages:
     one shape and dtype, each package's unpack_fused reads both to the
-    same values, and the two agree at the goldens bar."""
+    same values, and the two agree at the goldens bar in every occupied
+    slot; the port's empty slots read 0."""
     import jax
     from ocrjax import fused as JF
     from ocrjax import preprocess as jpre

@@ -2,7 +2,8 @@
 
 (i) No host sync inside a program: a TorchFunctionMode records every
 tensor made from host data and every read back to the host inside
-FusedOcr.__call__, DetState.forward, TileForward.forward and rec_strips.
+FusedOcr's two programs (the host reads the occupied-slot count between
+them), DetState.forward, TileForward.forward and rec_strips.
 (ii) extract_boxes with its thresholds as a (4,) tensor equals the float
 call bit for bit on both unclip branches, and ocrjax's extract_boxes with
 traced thresholds at the goldens bar (boxes 1e-3 px, scores 1e-5, as
@@ -18,6 +19,7 @@ python -m pytest --noconftest -q -m cuda tests/test_torch_graphs.py
 """
 
 import contextlib
+import gc
 import os
 
 import numpy as np
@@ -230,8 +232,10 @@ def test_no_host_sync_inside_a_program(eng, pages, program):
     widths = torch.tensor([64, 40, 20, 64], dtype=torch.int32)
     fp, st, tf = (fused._fused_for(eng, 8, 64, False),
                   api_det.det_state(eng), tiling._tile_forward(eng))
+    # the count the host reads between the two programs, read here
+    n_valid = fp.count(fp.detect(up, thr, wh))
     calls = {
-        "fused": lambda: fp(up, thr, wh),
+        "fused": lambda: fp.recognize(fp.detect(up, thr, wh), n_valid),
         "det": lambda: st.forward(up),
         "tile": lambda: tf(up),
         "rec_strips": lambda: api_det.rec_strips(eng, strips, widths),
@@ -310,6 +314,26 @@ def test_program_keys_follow_shape_dtype_and_static_args(stand_in):
     with graphs.eager():
         prog(a, 5.0)
     assert len(prog.stats()) == 4                   # eager() captures none
+
+
+def test_no_collection_during_a_capture(stand_in):
+    """The collector is off while a capture records (it could free a
+    dropped engine's graphs, which invalidates a capture on the card) and
+    on again after, also after a failed capture."""
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x + 1.0
+
+    assert gc.isenabled()
+    prog = graphs.Program(fn, "toy")
+    prog(torch.ones(3))
+    assert seen == [True, False] and gc.isenabled()
+    bad = graphs.Program(lambda x: x * int(x.sum()), "sync")
+    with pytest.raises(RuntimeError):
+        bad(torch.ones(3))
+    assert gc.isenabled()
 
 
 def test_a_failed_capture_raises_and_never_runs_eagerly(stand_in):
@@ -395,14 +419,14 @@ def test_a_capture_out_of_memory_halves_the_fused_chunk(stand_in,
     """A chunk whose capture runs out of device memory, again after the
     cached blocks went back, raises torch.cuda.OutOfMemoryError; the
     fused lane redoes it in halves, each captured as a key of its own."""
-    run = fused.FusedOcr._run
+    run = fused.FusedOcr._detect
 
     def tight(self, gray_up, thr, valid_wh):
         if getattr(graphs._state, "tape", None) and gray_up.shape[0] > 1:
             raise torch.cuda.OutOfMemoryError("out of memory in a capture")
         return run(self, gray_up, thr, valid_wh)
 
-    monkeypatch.setattr(fused.FusedOcr, "_run", tight)
+    monkeypatch.setattr(fused.FusedOcr, "_detect", tight)
 
     def lane():      # a line capacity of its own: a new FusedOcr
         return _lines(fused.ocr_pages_fused(eng, pages[:2],

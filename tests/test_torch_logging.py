@@ -169,13 +169,13 @@ def test_fused_oom_halving_logs_as_ocrjax(tiny_engines, monkeypatch):
     page = np.full((256, 256, 3), 235, np.uint8)
     page[100:120, 40:200] = 20
     imgs = [page] * 4
-    real_call = TF.FusedOcr.__call__
+    real_detect = TF.FusedOcr.detect
 
-    def call(self, gray_up, thr, wh):
+    def detect(self, gray_up, thr, wh):
         if gray_up.shape[0] > 1:
             raise torch.cuda.OutOfMemoryError("out of memory (test)")
-        return real_call(self, gray_up, thr, wh)
-    monkeypatch.setattr(TF.FusedOcr, "__call__", call)
+        return real_detect(self, gray_up, thr, wh)
+    monkeypatch.setattr(TF.FusedOcr, "detect", detect)
     real_make = JF.make_fused_ocr_fn
 
     def make(engine, *a, **kw):
