@@ -51,7 +51,8 @@ def counted_flops(fn, *args) -> float:
 
 def strip_widths(quads: np.ndarray, rec_height: int) -> np.ndarray:
     """The width of each line's strip at the recognizer's height, from its
-    box, aspect kept, rounded up to the CRNN's stride of 4."""
+    box, aspect kept, rounded up to the recognizer's stride of 4 (the
+    CRNN's and SVTR's: a frame every 4 columns)."""
     q = np.asarray(quads, np.float64).reshape(-1, 4, 2)
     top = np.linalg.norm(q[:, 1] - q[:, 0], axis=-1)
     left = np.linalg.norm(q[:, 3] - q[:, 0], axis=-1)

@@ -19,6 +19,10 @@ own (`generator`: traffic/<generator>.py). Each function that module
 defines takes the place of the one here of the same name: load_pages,
 page_lines, call_sequence, make_call, reference_pages. The sequence is
 fixed before set-up and its distinct calls are what set-up warms.
+
+Like everything a cell needs, the mix is found by name: so are the
+configuration, its recognizer (reference/rec_<arch>.py), its seeded
+assets (lib/seeded.py), the limits and the metrics (run.py).
 """
 
 from __future__ import annotations

@@ -9,11 +9,14 @@ configuration states them, from the raw page pixels and the asset files:
   * "pooled" (`OcrEngine.ocr_batch`): every page's lines pooled by strip
     width bucket, near-axis-aligned ones through the separable crop and
     the others through the homography warp, each with the ink refine and
-    re-warp (`warp.py`), then the CRNN and greedy CTC;
+    re-warp (`warp.py`), then the recognizer and greedy CTC;
   * "fused" (`ocr_batch(fused=True)` and `ocr` of a page that fits the
     canvas): the page's K best boxes, the separable crop at the fixed
-    bucket width with its AABB ink refine, the CRNN and CTC; a page with a
-    tilted line or with all K slots used is redone on the pooled lane;
+    bucket width with its AABB ink refine, the recognizer and CTC; a page
+    with a tilted line or with all K slots used is redone on the pooled
+    lane;
+  * the recognizer: the configuration's, `recognizers.resolve` (the CRNN,
+    `rec_crnn.py`, where it names none);
   * "tiled" (`ocr_tiled_batch`): the tile plan with the blank-tile
     prescreen, the tile detector on each tile, the seam merge, each line
     recognized from the tile that holds its crop, and the lines no tile
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from . import boxes as B
-from . import flatband, geometry, models as M
+from . import flatband, geometry, models as M, recognizers
 from . import warp as W
 
 FLAGSHIP_ARCH = dict(channels=(64, 128, 256, 512), blocks_per_stage=2,
@@ -379,6 +382,7 @@ class Reference:
                              head_stride=self.cfg.det_head_stride)
         self.rec = M.Params(M.read_safetensors(assets["rec"])[0], device,
                            lowp)
+        self.recognizer = recognizers.resolve(self.cfg)
         self.chars = M.load_charset(assets["charset"])
         self.tile = self.tile_arch = None
         if "det_tile" in assets:
@@ -413,8 +417,8 @@ class Reference:
         """Normalized strips (N, H, Wb), widths (N,) -> (texts, confs)."""
         texts, confs = [], []
         for lo in range(0, strips.shape[0], 128):
-            logits, lens = M.crnn_logits(self.rec, strips[lo:lo + 128],
-                                         widths[lo:lo + 128])
+            logits, lens = self.recognizer.logits(
+                self.rec, self.cfg, strips[lo:lo + 128], widths[lo:lo + 128])
             ids, cs = M.ctc_greedy(logits, lens, self.cfg.rec_max_tokens,
                                    self.cfg.ctc_blank)
             texts += ["".join(self.chars[i - 1] for i in seq) for seq in ids]

@@ -4,11 +4,15 @@
         --trace <0|1>
 
 Everything a cell needs is found by name from BENCHMARK.json: its
-configuration (configs/<config>.json: the OcrConfig as run and the asset
-files, pinned by sha256), its traffic (traffic/<mix>.json, read by
+configuration (configs/<config>.json: the OcrConfig as run and the assets,
+each a file or drawn from a seed (lib/seeded.py), pinned by sha256), the
+configuration's recognizer (reference/rec_<arch>.py by its
+`ocr_config["rec_arch"]`, "crnn" where it names none; the interface is in
+reference/recognizers.py), its traffic (traffic/<mix>.json, read by
 lib/traffic.py or by the module the mix names), the limits of its check
 (limits/<workload>.json) and its metrics (metrics/<metric>.py, each a
-`read(record)`). The run builds the engine on the card, runs every
+`read(record)`; the record carries the recognizer's parts' FLOPs and
+bytes under "work"). The run builds the engine on the card, runs every
 distinct call of the seed's call sequence (set-up: loading, kernel
 builds, graph captures), then calls the entry in a closed loop with one
 client for --seconds seconds. With --trace 1 the window is shorter
@@ -91,16 +95,21 @@ def cell_metrics(bench: Dict, workload: str, section: str) -> List[Dict]:
 
 def asset_paths(conf: Dict, root: str = ROOT) -> Dict[str, str]:
     """The configuration's asset files, each checked against its pinned
-    sha256; a changed file is refused."""
+    sha256; a changed file is refused. A seeded asset (lib/seeded.py) is
+    written once into .bench_cache/assets/ and read from there."""
+    from benchmark.lib import seeded
     from benchmark.reference.models import sha256
     out = {}
     for name, a in conf["assets"].items():
-        path = os.path.join(root, a["path"])
-        got = sha256(path)
-        if got != a["sha256"]:
-            raise SystemExit(f"asset {a['path']} has sha256 {got}, the "
-                             f"configuration pins {a['sha256']}")
-        out[name] = path
+        if "path" in a:
+            path = os.path.join(root, a["path"])
+            seeded.check_pin(a["path"], sha256(path), a["sha256"])
+            out[name] = path
+    for name, a in conf["assets"].items():
+        if "seed" in a:
+            out[name] = seeded.asset(
+                name, a, conf["ocr_config"], out["charset"],
+                os.path.join(root, ".bench_cache", "assets"))
     return out
 
 
@@ -225,7 +234,8 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool,
                     "latencies_ms": [(te - ts) * 1e3 for _, ts, te in calls],
                     "flops": sum(work.call_flops(seq[k]) for k, _, _ in calls),
                     "ccl_bytes": sum(work.call_ccl_bytes(seq[k])
-                                     for k, _, _ in calls)}
+                                     for k, _, _ in calls),
+                    "work": work.window_parts([seq[k] for k, _, _ in calls])}
     breakdown = None
     if traced:
         ctx.__exit__(None, None, None)
