@@ -1233,7 +1233,7 @@ def phase_c5_bf16(counters, fp32_results, reps: int = 2) -> tuple:
     px = sum(th * tw // eng.config.det_cc_downsample ** 2
              for img in batch
              for (_, _, th, tw) in tiling._prep_page(
-                 eng, preprocess.load_image(img))[0])
+                 eng, preprocess.load_page(img))[0])
     bound_ms = ccl_bound(px)["bound_ms"]
     print(f"  C5 K1 (cluster path): {dev['ccl']:.4f} ms over {n_ccl} "
           f"launches in {windows} windows: {dev['ccl'] / windows:.4f} ms a "

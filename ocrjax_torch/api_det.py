@@ -531,7 +531,9 @@ def ocr(engine, image, beam: bool = False, force_staged: bool = False,
     if color:
         force_staged = True
     if cfg.ocr_single_fused and not force_staged:
-        img = preprocess.load_image(image, auto_invert=cfg.auto_invert)
+        # a grey page stays 2-D: the fused decode reads its one channel,
+        # and the routes that need RGB reload it through load_image
+        img = preprocess.load_page(image, auto_invert=cfg.auto_invert)
         if max(img.shape[:2]) <= cfg.det_max_side:
             # latency path: one device program for a page that fits the
             # canvas; saturated and tilted pages are redone inside

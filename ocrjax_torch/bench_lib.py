@@ -407,8 +407,8 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
     d_by_shape: Dict = {}
     n_dense_tiles = 0
     for img in dense_imgs:
-        im = P.load_image(img, auto_invert=cfg.auto_invert)
-        _, gs = TL._prep_page(engine, im)
+        im = P.load_page(img, auto_invert=cfg.auto_invert)
+        _, gs, _ = TL._prep_page(engine, im)
         for g in gs:
             d_by_shape.setdefault(g.shape[1:], []).append(g)
             n_dense_tiles += len(g)

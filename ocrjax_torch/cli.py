@@ -10,8 +10,9 @@ Usage:
 
 It runs on the card; --cpu runs it on the CPU instead, and without CUDA and
 without --cpu it fails with the engine's error. --profile DIR writes a
-torch.profiler trace there (and, after a run of the fused lane, prints
-the share of its line slots recognized to stderr). --viz draws with PIL
+torch.profiler trace there (and prints to stderr how many pages the
+luma lanes kept 2-D and, after a run of the fused lane, the share of its
+line slots recognized). --viz draws with PIL
 and exits 2 where PIL is absent. `bench` runs bench_lib.run_bench on the
 committed traffic (or --traffic FILE) and prints its report as one JSON
 line.
@@ -157,16 +158,22 @@ def _make_engine(args):
 @contextlib.contextmanager
 def _profiled(args):
     """utils.profiling.device_trace over the run when --profile DIR: its
-    Chrome trace is written to DIR, and where the fused lane ran, the
-    share of its line slots that it recognized goes to stderr."""
+    Chrome trace is written to DIR; the forms load_page kept the pages in
+    and, where the fused lane ran, the share of its line slots that it
+    recognized go to stderr."""
     if not args.profile:
         yield
         return
     from ocrjax_torch.fused import slot_counts
+    from ocrjax_torch.preprocess import page_forms
     from ocrjax_torch.utils.profiling import device_trace
-    before = dict(slot_counts)
+    before, forms = dict(slot_counts), dict(page_forms)
     with device_trace(args.profile, "cpu" if args.cpu else "cuda"):
         yield
+    f = {k: page_forms[k] - forms.get(k, 0) for k in ("luma", "rgb")}
+    if any(f.values()):
+        print(f"page forms: {f['luma']} luma, {f['rgb']} rgb",
+              file=sys.stderr)
     n = {k: slot_counts[k] - before.get(k, 0)
          for k in ("chunks", "slots", "occupied", "recognized")}
     if n["slots"]:

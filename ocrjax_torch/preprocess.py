@@ -33,6 +33,7 @@ import collections
 import concurrent.futures
 import ctypes
 import os
+import threading
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -47,6 +48,12 @@ from ocrjax_torch.utils.profiling import carry, host_stage, stage
 # what took the native library: "pack" calls and "decode" pages (counted
 # on the calling thread, after the decode pool)
 native_calls = collections.Counter()
+
+# the form load_page kept each page in: "luma" for a 2-D or one-channel
+# array, "rgb" for a colour one (a decoded file is RGB); the tiled lane's
+# prep thread counts beside the caller's
+page_forms = collections.Counter()
+_page_forms_lock = threading.Lock()
 
 ImageLike = Union[str, np.ndarray]
 
@@ -67,22 +74,36 @@ def is_inverted(img: np.ndarray, thresh: int = 128, stride: int = 4) -> bool:
 def load_image(image: ImageLike, auto_invert: bool = True) -> np.ndarray:
     """Path or uint8 array -> uint8 RGB HWC, dark ink on light paper."""
     with stage("load_image", device=False):
-        return _load_image(image, auto_invert)
+        img = _load_page(image, auto_invert)
+        return img if img.ndim == 3 else np.stack([img] * 3, axis=-1)
 
 
-def _load_image(image: ImageLike, auto_invert: bool) -> np.ndarray:
+def load_page(image: ImageLike, auto_invert: bool = True) -> np.ndarray:
+    """load_image without the RGB stack: a 2-D or one-channel array comes
+    back as (H, W) luma, anything else as (H, W, 3) RGB, dark ink on light
+    paper. The lanes that turn the page straight into luma take it so; a
+    grey pixel's 601 luma is its value, so to_gray of either form is the
+    same array."""
+    with stage("load_image", device=False):
+        img = _load_page(image, auto_invert)
+    with _page_forms_lock:
+        page_forms["luma" if img.ndim == 2 else "rgb"] += 1
+    return img
+
+
+def _load_page(image: ImageLike, auto_invert: bool) -> np.ndarray:
     if isinstance(image, str):
         img = imageio.read_image(image)
     else:
         img = np.asarray(image)
         if img.dtype != np.uint8:
             raise ValueError(f"expected uint8 image, got {img.dtype}")
-        if img.ndim == 2:
-            img = np.stack([img] * 3, axis=-1)
-        elif img.ndim == 3 and img.shape[2] == 1:
-            img = np.repeat(img, 3, axis=2)
-    if img.ndim != 3 or img.shape[2] != 3:
+        if img.ndim == 3 and img.shape[2] == 1:
+            img = img[..., 0]
+    if img.ndim != 2 and (img.ndim != 3 or img.shape[2] != 3):
         raise ValueError(f"expected HWC RGB, got shape {img.shape}")
+    # on a 2-D page the median is of the uint8 samples themselves, the
+    # value the mean of three equal channels gives exactly
     if auto_invert and is_inverted(img):
         img = np.asarray(255 - img, np.uint8)
         _log_inverted()

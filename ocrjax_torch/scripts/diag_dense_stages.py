@@ -94,8 +94,8 @@ def main(argv=None) -> None:
                 print(f"  {k:22s} {dev[k]:8.1f} ms")
 
     # resident-tile det forward (the device det term of the dense ceiling)
-    img0 = preprocess.load_image(imgs[0], auto_invert=cfg.auto_invert)
-    _, groups = tiling._prep_page(eng, img0)
+    img0 = preprocess.load_page(imgs[0], auto_invert=cfg.auto_invert)
+    _, groups, _ = tiling._prep_page(eng, img0)
     fwd = tiling._tile_forward(eng)
     devs = [upload(eng, preprocess.pack_for_upload(g, cfg)) for g in groups]
 

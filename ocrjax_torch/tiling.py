@@ -220,9 +220,11 @@ def _tile_forward(engine) -> TileForward:
 
 
 def _prep_page(engine, img: np.ndarray):
-    """Host tile plan of a page -> (corners, groups): corners (y, x, th, tw)
-    in tile_plan order, groups one (n, th, tw) uint8 luma stack a tile
-    shape, concatenated in corner order. The page is padded by edge
+    """Host tile plan of a page -> (corners, groups, gray): corners (y, x,
+    th, tw) in tile_plan order, groups one (n, th, tw) uint8 luma stack a
+    tile shape, concatenated in corner order, gray the page's luma (the
+    page itself where it is 2-D, as load_page keeps a grey page), which
+    the host fallback crops. The page is padded by edge
     replication (a zero pad would put a stroke-like edge at the border).
     With cfg.tile_blank_skip a tile whose 4x-subsampled luma spans fewer
     than 24 levels holds no ink and is dropped (at least one tile stays)."""
@@ -247,7 +249,7 @@ def _prep_page(engine, img: np.ndarray):
         groups.append(np.stack([padded[y:y + th, x:x + tw]
                                 for (y, x, th, tw) in corners[k:j]]))
         k = j
-    return corners, groups
+    return corners, groups, gray
 
 
 def _dispatch_group(engine, tiles: np.ndarray):
@@ -366,7 +368,7 @@ def _run_tiles(engine, img: np.ndarray):
     """Tile one page and detect -> (corners, uploaded tiles, merged
     (quads, scores) in the page frame, saturated)."""
     h, w = img.shape[:2]
-    corners, groups = _prep_page(engine, img)
+    corners, groups, _ = _prep_page(engine, img)
     devs, boxes, scores, valid = _fetch_page(
         engine, [_dispatch_group(engine, g) for g in groups])
     merged, saturated = _merge_page(engine, corners, boxes, scores, valid,
@@ -378,7 +380,7 @@ def detect_tiled(engine, image) -> List["DetBox"]:
     """Tiled detection: boxes in the original image frame, reading order.
     A page no larger than a tile is one tile."""
     from ocrjax_torch.api import DetBox
-    img = preprocess.load_image(image, auto_invert=engine.config.auto_invert)
+    img = preprocess.load_page(image, auto_invert=engine.config.auto_invert)
     _, _, (quads, ss), _ = _run_tiles(engine, img)
     return [DetBox(quads[i], ss[i])
             for i in geometry.sort_reading_order(quads)]
@@ -420,7 +422,8 @@ def _assign_quads_to_tiles(cfg, corners, quads, h, w):
 
 def _host_fallback_strips(engine, img, quads, host_idx):
     """Full-resolution host crops, ink-tightened, of the quads no tile
-    contains."""
+    contains. img: the page's luma from _prep_page (the lane's), or the
+    page, whose luma is made here."""
     from ocrjax_torch.api_det import _ink_crop_host
     cfg = engine.config
     h, w = img.shape[:2]
@@ -497,11 +500,11 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
     def prep(i):
         with host_stage("tile_prep_work"):
             try:
-                img = preprocess.load_image(images[i],
-                                            auto_invert=cfg.auto_invert)
+                img = preprocess.load_page(images[i],
+                                           auto_invert=cfg.auto_invert)
                 return (i, img) + _prep_page(engine, img)
             except (FileNotFoundError, ValueError, OSError):
-                return (i, None, None, None)
+                return (i, None, None, None, None)
 
     def iter_windows():
         pool = _get_prefetch_pool()
@@ -534,7 +537,7 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
         tile_plan sorts a page's corners."""
         with stage("tile_det_dispatch"):
             by_shape = {}
-            for pi, (_, _, _, groups) in enumerate(window):
+            for pi, (_, _, _, groups, _) in enumerate(window):
                 for g in groups:
                     by_shape.setdefault(g.shape[1:], []).append((pi, g))
             disp = []
@@ -597,7 +600,7 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
         with stage("tile_det_fetch"):          # once a window
             per_page, devs = fetch_window(window, disp)
         win = []
-        for (i, img, corners, _), (boxes, scores, valid, rows) in zip(
+        for (i, img, corners, _, gray), (boxes, scores, valid, rows) in zip(
                 window, per_page):
             h, w = img.shape[:2]
             with stage("tile_seam_merge"):
@@ -609,8 +612,9 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
             if _allow_rot90 and _is_landscape(cfg, np.asarray(quads)):
                 rot90_pages.append((i, img))
                 continue
-            win.append(dict(i=i, img=img, corners=corners, rows=rows,
-                            quads=quads, ss=ss, saturated=saturated))
+            win.append(dict(i=i, img=img, gray=gray, corners=corners,
+                            rows=rows, quads=quads, ss=ss,
+                            saturated=saturated))
         if not win:
             continue
 
@@ -651,7 +655,7 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
             if p["host_idx"]:
                 with stage("tile_host_fallback"):
                     rs = engine.recognize_strips(
-                        _host_fallback_strips(engine, p["img"], p["quads"],
+                        _host_fallback_strips(engine, p["gray"], p["quads"],
                                               p["host_idx"]),
                         beam=beam, same_page=True)
                     for k, qi in enumerate(p["host_idx"]):

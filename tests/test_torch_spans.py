@@ -125,6 +125,24 @@ def test_entries_number_their_calls_and_load_inside_them(eng, pages):
         [(0, "ocr"), (1, "detect"), (2, "recognize")]
 
 
+@pytest.mark.parametrize("form", ["luma", "rgb"])
+def test_luma_lanes_load_once_inside_their_call(eng, pages, form):
+    """ocr()'s fused path and detect_tiled load a 2-D page, kept 2-D, as
+    they load its RGB stack: one load_image span a call, inside it. The
+    tiled batch loads on its prep thread, inside tile_prep_work."""
+    page = pages[0][..., 0] if form == "luma" else pages[0]
+    timer = P.StageTimer("cpu")
+    with timer.active():
+        eng.ocr(page)
+        eng.detect_tiled(page)
+        eng.ocr_tiled_batch([page])
+    spans = timer.spans
+    assert [(s.call, spans[s.parent].name) for s in spans
+            if s.name == "load_image"] == [(0, "ocr"), (1, "detect_tiled")]
+    assert [(s.call, s.host_only) for s in spans
+            if s.name == "tile_prep_work"] == [(2, True)]
+
+
 # ------------------------------------------------- (d) the operator trace --
 
 def test_device_trace_without_a_timer_names_calls_and_workers(

@@ -135,7 +135,7 @@ def test_prep_page_matches_ocrjax(engines, kind):
         img[:300] = rng.randint(0, 256, (300, 900))
     if kind == "text":
         img[300:] = rng.randint(200, 256, (800, 900))
-    got_c, got_g = tiling._prep_page(port, img)
+    got_c, got_g, _ = tiling._prep_page(port, img)
     want_c, want_g = jax_tiling._prep_page(jax_engine, img)
     assert got_c == want_c
     assert len(got_g) == len(want_g)
