@@ -4312,6 +4312,7 @@ def phase_graphs(counters, smi: str) -> tuple:
                         f"{sweep_replays} replays")
     print(f"    the sweep replayed the fused program {sweep_replays} times "
           f"on {len(st)} keys, none new")
+    note_captures(ec)           # a config change drops the engine's programs
     ec.config = base.replace(fetch_max_tokens=2)
     bytepack.refetches.clear()
     exact("fetch_max_tokens=2, fused", lambda: lines(ec.ocr_batch(
@@ -4324,8 +4325,8 @@ def phase_graphs(counters, smi: str) -> tuple:
     print(f"    forced refetch: {bytepack.refetches['fused_fetch']} "
           f"refetches in 3 runs of {n_chunks} chunks, chunk 0's rows "
           f"read after chunks 1-3 replayed")
-    ec.config = base
     note_captures(ec)
+    ec.config = base
     del ec, fused_c
     gc.collect()
 

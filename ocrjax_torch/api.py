@@ -106,6 +106,10 @@ class OcrEngine:
     `seed`. tile_det_weights with its tile_det_arch (the tile asset's
     `arch` metadata) builds the dedicated tile detector of the tiled lanes;
     without it they run the flagship detector.
+
+    Every device program the engine runs is an entry of its one registry
+    (graphs.engine_programs): a config change, thresholds aside, empties
+    it, and resetting `_det` drops the programs that read the detector.
     """
 
     def __init__(self, config: Optional[OcrConfig] = None,
@@ -152,9 +156,9 @@ class OcrEngine:
         # antisymmetry certificate: single-pass margins (cls_single_pass)
         self.cls_antisym = False
         self.tile_det_arch = tile_det_arch
-        self._fused_cache = {}
-        self._det = None   # api_det.DetState, built by the staged lanes
-        self._tile_fwd = None   # tiling.TileForward, built by the tiled lanes
+        # api_det.DetState, the flagship detector, built at its first use;
+        # the engine's programs are in its registry (graphs.engine_programs)
+        self._det = None
         # parallel.mesh.shard_tiled_serving: the tile lanes' dp mesh
         self.tile_mesh = None
 
@@ -180,8 +184,9 @@ class OcrEngine:
         """The flagship detector of the staged and fused lanes. It is built
         from the config at the detector's first use and kept from then on
         (api_det.DetState, as ocrjax's _DetState); resetting `_det` builds
-        it again from the config then in force. Callers may load weights
-        into it (weights.load_model_variables)."""
+        it again from the config then in force, and the programs made over
+        the old one are dropped. Callers may load weights into it
+        (weights.load_model_variables)."""
         from ocrjax_torch.api_det import det_state
         return det_state(self).model
 

@@ -63,23 +63,26 @@ def upload_thresholds(engine) -> torch.Tensor:
 
 
 class DetState:
-    """The staged detector of an engine: DB forward and box extraction over
-    a batch of uploaded canvases, on the engine's device. The flagship DB
-    is built here, from the config of the detector's first use, and kept
-    (ocrjax's _DetState). The forward is one graphs.Program keyed by the
-    canvas batch's shape and the config without its thresholds (which it
-    takes as a tensor); its graphs split at the stages, so the DB forward
-    and the box extraction (before, at and after the CCL) replay as the
-    reference's prob_fn and boxes_fn do. A config change drops them."""
+    """The staged detector of an engine: the flagship DB, built here from
+    the config of the detector's first use and kept (ocrjax's _DetState;
+    `engine._det` holds it, and resetting that to None builds it again
+    from the config then in force), and its forward, DB forward and box
+    extraction over a batch of uploaded canvases. The forward is a
+    program of the engine's registry, made over this detector
+    (graphs.held): keyed by the canvas batch's shape, with the thresholds
+    as a tensor, its graphs split at the stages, so the DB forward and
+    the box extraction (before, at and after the CCL) replay as the
+    reference's prob_fn and boxes_fn do."""
 
     def __init__(self, engine):
         self.engine = engine
         self.model = engine.build_detector("det")
-        self.program = graphs.Program(self._run, "det")
-        self._cfg_key = None
 
-    def programs(self):
-        return (self.program,)
+    @property
+    def program(self) -> graphs.Program:
+        return graphs.held(self.engine, "det",
+                           lambda: graphs.Program(self._run, "det"),
+                           over=self.model)
 
     def forward(self, gray_up: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -89,14 +92,11 @@ class DetState:
         'scores' (B, C), 'valid' (B, C)}) as device tensors; on the card
         the program's static outputs, which the next call of the same shape
         overwrites."""
-        key = graphs.config_key(self.engine.config)
-        if key != self._cfg_key:
-            self.program.clear()
-            self._cfg_key = key
-        return self.program(gray_up, upload_thresholds(self.engine), key)
+        return self.program(gray_up, upload_thresholds(self.engine))
 
     @torch.inference_mode()
-    def _run(self, gray_up: torch.Tensor, thr: torch.Tensor, cfg):
+    def _run(self, gray_up: torch.Tensor, thr: torch.Tensor):
+        cfg = self.engine.config
         with stage("det_forward"):
             gray_u8 = preprocess.unpack_on_device(gray_up, cfg)
             x = preprocess.det_normalize_gray(gray_u8, cfg.det_mean,
@@ -150,7 +150,8 @@ def truncate_det(packed: torch.Tensor, C: int, Kf: int) -> torch.Tensor:
 
 
 # truncate_det's graphs (the reference's _truncate_det_jit), held by the
-# module: no engine is at hand where the candidates are fetched
+# module, outside every engine's registry: no engine is at hand where the
+# candidates are fetched
 truncate_det_program = graphs.Program(truncate_det, "truncate_det")
 
 

@@ -36,8 +36,7 @@ import torch
 from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
-from ocrjax_torch.utils.profiling import (add_bytes, carry, current,
-                                           stage)
+from ocrjax_torch.utils.profiling import add_bytes, current, stage
 
 
 def assign_width_buckets(est_widths: np.ndarray, buckets: Sequence[int]
@@ -303,7 +302,6 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
                                       pack_det,
                                       pooled_fullres_from_boxes,
                                       reading_order, upload)
-    from ocrjax_torch.fused import _get_prefetch_pool
 
     cfg = engine.config
     B = len(images)
@@ -316,25 +314,18 @@ def ocr_pages(engine, images: Sequence, beam: bool = False,
     ok = np.ones((B,), bool)
     originals: Dict[int, np.ndarray] = {}
 
-    def decode(lo: int, hi: int):
-        return preprocess.decode_chunk_to_gray(images, range(lo, hi), cfg,
+    def decode(bound):
+        return preprocess.decode_chunk_to_gray(images, range(*bound), cfg,
                                                originals_out=originals)
 
-    # chunk k + 1 decodes on the fused lane's lookahead thread while chunk
-    # k is uploaded and dispatched
+    # chunk k + 1 decodes on the lookahead thread while chunk k is
+    # uploaded and dispatched
     bounds = [(lo, min(lo + C, B)) for lo in range(0, B, C)]
-    with stage("decode_submit", device=False):
-        pending_decode = _get_prefetch_pool().submit(carry(decode),
-                                                     *bounds[0])
+    decoded = preprocess.lookahead(decode, bounds, "host_decode",
+                                   "decode_submit")
     chunk_devs, cands = [], []
-    for ci, (lo, hi) in enumerate(bounds):
-        with stage("host_decode"):
-            grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], _ = \
-                pending_decode.result()
-        if ci + 1 < len(bounds):
-            with stage("decode_submit", device=False):
-                pending_decode = _get_prefetch_pool().submit(
-                    carry(decode), *bounds[ci + 1])
+    for (lo, hi), got in zip(bounds, decoded):
+        grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], _ = got
         with stage("det_dispatch"):
             dev = upload(engine, preprocess.pack_for_upload(grays, cfg))
             chunk_devs.append(dev)

@@ -148,8 +148,8 @@ def _make_engine(args):
         if getattr(args, flag, False):
             overrides[field] = value
     if overrides:
-        # the engine's lanes read engine.config on every call; the cached
-        # staged detector and fused programs are keyed on it or rebuilt
+        # the engine's lanes read engine.config on every call, and its
+        # program registry follows it; the detector is built again from it
         engine.config = engine.config.replace(**overrides)
         engine._det = None
     return engine

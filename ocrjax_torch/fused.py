@@ -32,7 +32,6 @@ scan reroutes to the staged lane, whose 90-degree redo rotates it.
 from __future__ import annotations
 
 import collections
-import concurrent.futures
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -44,7 +43,7 @@ from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
-from ocrjax_torch.utils.profiling import add_bytes, carry, stage
+from ocrjax_torch.utils.profiling import add_bytes, stage
 
 
 def top_k(score: torch.Tensor, k: int):
@@ -74,7 +73,8 @@ slot_counts: collections.Counter = collections.Counter()
 
 class FusedOcr:
     """Device programs of the fused lane for one (K, bucket width, greedy
-    or beam, warp kind) and the engine's config at construction.
+    or beam, warp kind), the engine's config and its detector at
+    construction (the detector is built then, outside the programs).
     separable_warp=False takes the exact homography warp grouped per page
     and the homography ink refine in place of the separable AABB crop and
     its AABB refine (the reference's make_fused_ocr_fn switch).
@@ -92,6 +92,7 @@ class FusedOcr:
                  separable_warp: bool = True):
         self.engine = engine
         self.cfg = engine.config
+        self.det_model = engine.det_model
         self.K = lines_per_page
         self.W = bucket_width
         self.beam = beam
@@ -126,12 +127,9 @@ class FusedOcr:
         """The first program (arguments as __call__'s), and the copy of its
         occupied-slot count to the host started behind it: the handle
         that count() and recognize() take."""
-        from ocrjax_torch.api_det import det_state, upload
+        from ocrjax_torch.api_det import upload
         if not isinstance(thr, torch.Tensor):
             thr = upload(self.engine, np.asarray(thr, np.float32))
-        # the detector is built at its first use, its weights copied to
-        # the card: that happens here, not inside the program
-        det_state(self.engine)
         out = self.program(gray_up, thr, valid_wh)
         return out, bytepack.HostCopy(out[-1])
 
@@ -166,7 +164,7 @@ class FusedOcr:
             gray_u8 = preprocess.unpack_on_device(gray_up, cfg)
             x = preprocess.det_normalize_gray(gray_u8, cfg.det_mean,
                                               cfg.det_std)
-            prob = db_int8.apply_prob(eng.det_model, x,
+            prob = db_int8.apply_prob(self.det_model, x,
                                       cfg.det_int8)           # (B, S', S')
         with stage("extract_boxes"):
             # zero the prob map outside each page's valid area before the
@@ -350,27 +348,12 @@ def should_reroute_rotation(vq: np.ndarray, cfg) -> bool:
 
 def _fused_for(engine, K: int, W: int, beam: bool,
                separable_warp: bool = True) -> FusedOcr:
-    """FusedOcr cached per (K, W, beam, warp kind, config without the
-    thresholds), its graphs with it."""
-    key = (K, W, beam, separable_warp, graphs.config_key(engine.config))
-    if key not in engine._fused_cache:
-        engine._fused_cache[key] = FusedOcr(engine, K, W, beam,
-                                            separable_warp)
-    return engine._fused_cache[key]
-
-
-_prefetch_pool = None
-
-
-def _get_prefetch_pool() -> concurrent.futures.ThreadPoolExecutor:
-    """One lookahead thread for the next chunk's decode, apart from
-    preprocess's decode pool: the chunk task waits on that pool's per-page
-    tasks and must never hold one of its workers."""
-    global _prefetch_pool
-    if _prefetch_pool is None:
-        _prefetch_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="ocrjax_torch-chunk-prefetch")
-    return _prefetch_pool
+    """The engine's FusedOcr for (K, W, beam, warp kind), an entry of its
+    program registry made over the detector it reads (graphs.held)."""
+    return graphs.held(
+        engine, ("fused", K, W, beam, separable_warp),
+        lambda: FusedOcr(engine, K, W, beam, separable_warp),
+        over=engine.det_model)
 
 
 def ocr_pages_fused(engine, images, lines_per_page: int = None,
@@ -431,12 +414,12 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
                 fetch_halving(packed[:mid], wh[:mid], depth + 1),
                 fetch_halving(packed[mid:], wh[mid:], depth + 1)])
 
-    def decode(lo: int, hi: int):
+    def decode(bound):
         # the colour reroute's test rides on the decode: 601 luma can wash
         # saturated ink out, so such pages run the staged lane over
         # min-channel luma
         return preprocess.decode_chunk_to_gray(
-            images, range(lo, hi), cfg,
+            images, range(*bound), cfg,
             color_frac=cfg.fused_color_reroute_frac)
 
     C = max(1, min(cfg.fused_chunk_pages, B))
@@ -445,23 +428,16 @@ def ocr_pages_fused(engine, images, lines_per_page: int = None,
     ok = np.ones((B,), bool)
     colorful = set()
     bounds = [(lo, min(lo + C, B)) for lo in range(0, B, C)]
-    prefetch = _get_prefetch_pool()
-    with stage("decode_submit", device=False):
-        pending_decode = prefetch.submit(carry(decode), *bounds[0])
+    decoded = preprocess.lookahead(decode, bounds, "host_decode",
+                                   "decode_submit")
 
     def take(ci: int):
         """Chunk ci's decode (waited for; the next chunk's submitted), its
         pack and its upload -> the uploaded (pages, valid (w, h))."""
-        nonlocal pending_decode
         lo, hi = bounds[ci]
-        with stage("host_decode"):
-            grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], col = \
-                pending_decode.result()
-            colorful.update(lo + j for j, c in enumerate(col) if c)
-        if ci + 1 < len(bounds):
-            with stage("decode_submit", device=False):
-                pending_decode = prefetch.submit(carry(decode),
-                                                 *bounds[ci + 1])
+        grays, scales[lo:hi], valid_hw[lo:hi], ok[lo:hi], col = \
+            next(decoded)
+        colorful.update(lo + j for j, c in enumerate(col) if c)
         wh = valid_hw[lo:hi, ::-1].astype(np.float32).copy()
         with stage("fused_dispatch"):
             packed = preprocess.pack_for_upload(grays, cfg)

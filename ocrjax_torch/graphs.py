@@ -7,6 +7,12 @@ returns before the device finishes. Here a `Program` wraps a function of
 tensors; on the card it is captured once per key as CUDA graphs and
 replayed from then on.
 
+* Registry: every serving program an engine runs (the fused lane's, the
+  staged detector's, the tile forward's, and those of `program`) is an
+  entry of the engine's one registry (`engine_programs`, `held`). A
+  config change, thresholds aside, empties it; an entry whose detector
+  or tile mesh was replaced is made anew; either drops the graphs.
+
 * Key: each tensor argument's shape, dtype and device, plus the non-tensor
   arguments (which must be hashable).
 * First call with a key: the function runs eagerly on the device's
@@ -348,8 +354,9 @@ class _Entry:
 
 class Program:
     """A function of tensors, captured as CUDA graphs once per key on the
-    card (see the module's docstring); its graphs live as long as it does
-    (in the cache of the engine that holds it)."""
+    card (see the module's docstring); its graphs live until it is
+    cleared or dropped (an engine's registry drops its programs by the
+    rule of `held`)."""
 
     def __init__(self, fn: Callable, name: str):
         self.fn = fn
@@ -358,6 +365,9 @@ class Program:
 
     def clear(self) -> None:
         self.entries.clear()
+
+    def programs(self):
+        return (self,)
 
     @staticmethod
     def _key(args, kw) -> Tuple:
@@ -526,23 +536,45 @@ def owned_program(owner, name: str, fn: Callable) -> Program:
 
 def program(engine, name: str, fn: Callable) -> Program:
     """The engine's Program `name` over fn, made at first use and kept in
-    engine._programs, which a config change empties (programs read the
-    config in force when they were captured)."""
+    the engine's registry (held)."""
+    return held(engine, name, lambda: Program(fn, name))
+
+
+def held(engine, key, make: Callable, over=None):
+    """The engine's entry `key` of its registry: a Program, or an object
+    whose programs() are its Programs (a fused lane's FusedOcr, the tile
+    forward), made by make() at first use. The one lifetime rule: an
+    entry lives until the config changes (engine_programs) or until what
+    it closes over besides the config and the fixed models, `over` (the
+    detector it reads, the tile mesh), is no longer equal to what it was
+    made over; then its graphs are dropped and make() makes it anew."""
     progs = engine_programs(engine)
-    p = progs.get(name)
-    if p is None:
-        p = progs[name] = Program(fn, name)
-    return p
+    e = progs.get(key)
+    if e is None or e[0] != over:
+        if e is not None:
+            _drop(e[1])
+        e = progs[key] = (over, make())
+    return e[1]
 
 
-def engine_programs(engine) -> Dict[str, Program]:
-    """engine._programs, emptied when the engine's config (thresholds
-    aside, which programs take as tensors) changed since it was filled."""
+def engine_programs(engine) -> Dict[Any, Tuple[Any, Any]]:
+    """engine._programs, the registry of every serving program the engine
+    runs: key -> (what the entry was made over, the entry) (held). A
+    change of the engine's config (thresholds aside, which programs take
+    as tensors) empties it, since programs read the config in force when
+    they were captured."""
     key = config_key(engine.config)
     if getattr(engine, "_programs_cfg", None) != key:
+        for _, h in getattr(engine, "_programs", {}).values():
+            _drop(h)
         engine._programs = {}
         engine._programs_cfg = key
     return engine._programs
+
+
+def _drop(h) -> None:
+    for p in h.programs():
+        p.clear()
 
 
 def config_key(cfg):
@@ -553,12 +585,6 @@ def config_key(cfg):
 
 
 def all_programs(engine) -> Iterator[Program]:
-    """Every program an engine holds: its fused programs, its staged
-    detector's, its tile forward's and its own."""
-    for f in getattr(engine, "_fused_cache", {}).values():
-        yield from f.programs()
-    for holder in (getattr(engine, "_det", None),
-                   getattr(engine, "_tile_fwd", None)):
-        if holder is not None:
-            yield from holder.programs()
-    yield from getattr(engine, "_programs", {}).values()
+    """Every program of the engine's registry."""
+    for _, h in engine_programs(engine).values():
+        yield from h.programs()

@@ -390,7 +390,8 @@ def init_sharded_rec_state(config, charset, mesh: DeviceMesh,
 def make_sharded_fused_ocr_fn(engine, mesh: DeviceMesh,
                               lines_per_page: int = 32,
                               bucket_width: int = 320, beam: bool = False):
-    """The fused page program (fused.FusedOcr) over the mesh: every rank
+    """The engine's fused page program (fused._fused_for, from its
+    program registry) over the mesh: every rank
     passes the whole batch, runs its dp slice of the pages with the
     engine's (replicated) models, and gets every page's packed row back by
     one all-gather. fn(gray_up (B, S, S/2) packed or (B, S, S) luma, thr,
@@ -398,10 +399,10 @@ def make_sharded_fused_ocr_fn(engine, mesh: DeviceMesh,
     cfg.fetch_bytes, float32 otherwise; fused.unpack_fused reads either).
     B must be a multiple of the dp size."""
     from ocrjax_torch import fused as F
-    prog = F.FusedOcr(engine, lines_per_page, bucket_width, beam)
     dev = engine.device
 
     def fn(gray_up, thr, valid_wh):
+        prog = F._fused_for(engine, lines_per_page, bucket_width, beam)
         gray_up, valid_wh = (torch.as_tensor(a) for a in (gray_up, valid_wh))
         s = dp_slice(mesh, gray_up.shape[0])
         return gather_rows(mesh, prog(gray_up[s].to(dev), thr,
@@ -415,9 +416,9 @@ def shard_tiled_serving(engine, mesh: Optional[DeviceMesh]) -> None:
     detect_tiled pads its tile stack to a dp multiple with white tiles,
     runs its dp slice of the tiles and all-gathers the candidates
     (tiling._dispatch_group); the seam merge and the pooled recognition
-    are unchanged. The engine's tile program is rebuilt."""
+    are unchanged. The engine's tile program, made over the mesh, is
+    made anew (tiling._tile_forward)."""
     engine.tile_mesh = mesh
-    engine._tile_fwd = None
 
 
 # ---------------------------------------------------------------------------

@@ -31,10 +31,11 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import ctypes
 import os
 import threading
-from typing import Sequence, Tuple, Union
+from typing import Callable, Iterator, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -326,6 +327,38 @@ def _get_decode_pool() -> concurrent.futures.ThreadPoolExecutor:
             max_workers=min(8, os.cpu_count() or 1),
             thread_name_prefix="ocrjax_torch-decode")
     return _decode_pool
+
+
+_lookahead_pool = None
+
+
+def lookahead(fn: Callable, items: Sequence, wait: str,
+              submit: str = None) -> Iterator:
+    """fn(item) of each item, in order, as a generator: each runs on the
+    one lookahead thread, and item k + 1's is submitted as soon as item
+    k's is taken, so that it runs while the caller handles item k (the
+    lanes' host pipelines: a chunk's decode, a page's tile prep). The
+    caller's wait for each result is the stage `wait`; each submit is
+    the host step `submit` where given. The thread is apart from the
+    decode pool: a chunk's task waits on that pool's per-page tasks and
+    must never hold one of its workers."""
+    global _lookahead_pool
+    if _lookahead_pool is None:
+        _lookahead_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ocrjax_torch-lookahead")
+    items = list(items)
+
+    def start(item):
+        with (stage(submit, device=False) if submit
+              else contextlib.nullcontext()):
+            return _lookahead_pool.submit(carry(fn), item)
+    pending = start(items[0]) if items else None
+    for k in range(len(items)):
+        with stage(wait):
+            out = pending.result()
+        if k + 1 < len(items):
+            pending = start(items[k + 1])
+        yield out
 
 
 def decode_chunk_to_gray(images: Sequence[ImageLike], idxs, cfg: OcrConfig,

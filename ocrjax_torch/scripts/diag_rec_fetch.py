@@ -18,8 +18,9 @@ per width bucket and count cap, and the chunks' packed rows
 (api_det.pack_rec, uint8 under cfg.fetch_bytes) are concatenated and
 copied to the host whole (the lane copies the first fetch_max_tokens
 token columns first). payload is the bytes of those rows, as the
-reference's. The page axis is not padded to a power of two: eager PyTorch
-compiles nothing per shape. The pages are the fused bench's (det_max_side
+reference's. The pages are pooled as the lane pools them
+(bucketing.stack_pages: on the card the device's shared page buffer, its
+page axis rounded up to a power of two). The pages are the fused bench's (det_max_side
 canvases, rng seed 0); the engine runs on the card unless given --cpu.
 """
 
@@ -47,9 +48,8 @@ def main(argv=None) -> None:
     from ocrjax_torch import bucketing, preprocess
     from ocrjax_torch.api import OcrEngine
     from ocrjax_torch.api_det import (_estimate_strip_widths, det_state,
-                                      fetch_det, gray_norm, pack_det,
-                                      pack_rec, rec_strips, unpack_rec,
-                                      upload)
+                                      fetch_det, pack_det, pack_rec,
+                                      rec_strips, unpack_rec, upload)
     from ocrjax_torch.ops import bytepack
     from ocrjax_torch.ops.warp import (expand_quads_host,
                                        warp_quads_multi_refined)
@@ -94,7 +94,9 @@ def main(argv=None) -> None:
     quads = np.asarray(quads, np.float32)
     b_all = (valid_hw[page_ids][:, ::-1].astype(np.float32) - 1.0)[:, None, :]
     with torch.inference_mode():
-        gray_dev = torch.cat([gray_norm(engine, d) for d in chunk_devs])
+        # each chunk's pages copied out as they are made: the next chunk of
+        # the shape replays over gray_norm's output
+        gray_dev = bucketing.stack_pages(engine, chunk_devs)
     print(f"pages={B} pooled_lines={len(quads)}", flush=True)
 
     # recognize_pooled's chunks, every quad on the refined homography warp

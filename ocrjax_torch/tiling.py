@@ -11,11 +11,11 @@ pooled across the tiles of a window of pages (bucketing.recognize_pooled);
 a line longer than any tile is cropped from the page on the host.
 
 ocr_tiled_batch streams pages in windows of tiles. The host prepares page
-i+1 on a prefetch thread while page i is uploaded, and the next window's
-upload and detection are issued before the current window's candidates are
-read, so the card detects while the host merges and recognizes. Under a
-tile mesh (parallel.mesh.shard_tiled_serving) the ranks split each tile
-batch's detection (_dispatch_group).
+i+1 on the lookahead thread (preprocess.lookahead) while page i is
+uploaded, and the next window's upload and detection are issued before the
+current window's candidates are read, so the card detects while the host
+merges and recognizes. Under a tile mesh (parallel.mesh.shard_tiled_serving)
+the ranks split each tile batch's detection (_dispatch_group).
 
 A tile batch's candidates travel as api_det.pack_det rows and come back
 through api_det.fetch_det's truncated first fetch. Dense tiles overflow
@@ -30,7 +30,6 @@ tile_prep_work.
 
 from __future__ import annotations
 
-import concurrent.futures
 from typing import List, Tuple
 
 import numpy as np
@@ -40,7 +39,7 @@ from ocrjax_torch import geometry, graphs, preprocess
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.postprocess import db_boxes
 from ocrjax_torch.utils.logging import get_logger, log_fields
-from ocrjax_torch.utils.profiling import carry, current, host_stage, stage
+from ocrjax_torch.utils.profiling import current, host_stage, stage
 
 
 def axis_plan(total: int, tile: int, overlap: int, quantum: int
@@ -163,21 +162,20 @@ class TileForward(torch.nn.Module):
     candidate cap max(det_max_candidates, tile_max_candidates) and the
     detector's head stride."""
 
-    def __init__(self, engine):
+    def __init__(self, engine, model: torch.nn.Module):
         super().__init__()
         cfg = engine.config
         self.cfg = cfg
+        self.model = model
         tcfg = cfg.replace(det_max_candidates=max(
             cfg.det_max_candidates, cfg.tile_max_candidates))
-        if cfg.tile_det_enable and engine.tile_det_model is not None:
-            self.model = engine.tile_det_model
+        if model is engine.tile_det_model:
             tcfg = tcfg.replace(det_head_stride=int(
                 engine.tile_det_arch.get("head_stride", 1)))
             # the reference keeps the tile detector in float: int8 measured
             # a wash at tile shapes on its TPU
             self.int8 = False
         else:
-            self.model = engine.det_model
             self.int8 = cfg.det_int8
         self.tcfg = tcfg
         self.program = graphs.Program(self._run, "tile_forward")
@@ -190,7 +188,8 @@ class TileForward(torch.nn.Module):
         tile forward), its graphs split at the stages: tile_det, then
         extract_boxes before, at and after the CCL. The thresholds are the
         config's, closed over as the reference's tile forward closes over
-        them: a config change builds a new TileForward (_tile_forward).
+        them: a config change, thresholds included, makes a new
+        TileForward (_tile_forward).
         On the card the candidates are the program's static outputs,
         which the next call of the same shape overwrites."""
         return self.program(tiles_up)
@@ -213,10 +212,16 @@ class TileForward(torch.nn.Module):
 
 
 def _tile_forward(engine) -> TileForward:
-    """The engine's TileForward, rebuilt when its config changes."""
-    if engine._tile_fwd is None or engine._tile_fwd.cfg != engine.config:
-        engine._tile_fwd = TileForward(engine)
-    return engine._tile_fwd
+    """The engine's TileForward: an entry of its program registry made
+    over the whole config (the thresholds are closed over), the detector
+    it runs and the tile mesh (graphs.held)."""
+    cfg = engine.config
+    model = engine.tile_det_model if cfg.tile_det_enable else None
+    if model is None:
+        model = engine.det_model
+    return graphs.held(engine, "tile_forward",
+                       lambda: TileForward(engine, model),
+                       over=(cfg, model, engine.tile_mesh))
 
 
 def _prep_page(engine, img: np.ndarray):
@@ -459,18 +464,6 @@ def max_pool_tiles(cfg) -> int:
     return max(2, int(cfg.tile_window_hbm_mb * 2**20 / bytes_per_tile))
 
 
-_prefetch_pool = None
-
-
-def _get_prefetch_pool() -> concurrent.futures.ThreadPoolExecutor:
-    """One thread that prepares the next page while this one uploads."""
-    global _prefetch_pool
-    if _prefetch_pool is None:
-        _prefetch_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="ocrjax-torch-tile-prep")
-    return _prefetch_pool
-
-
 def ocr_tiled_batch(engine, images, beam: bool = False,
                     _allow_rot90: bool = True) -> List["OcrResult"]:
     """Tiled OCR of many pages, one OcrResult each.
@@ -507,13 +500,8 @@ def ocr_tiled_batch(engine, images, beam: bool = False,
                 return (i, None, None, None, None)
 
     def iter_windows():
-        pool = _get_prefetch_pool()
-        fut = pool.submit(carry(prep), 0) if B else None
         window, budget, first = [], 0.0, B > 1
-        for i in range(B):
-            with stage("tile_prep"):
-                page = fut.result()
-            fut = pool.submit(carry(prep), i + 1) if i + 1 < B else None
+        for page in preprocess.lookahead(prep, range(B), "tile_prep"):
             if page[1] is None:
                 results[page[0]] = OcrResult(lines=[])
                 continue

@@ -8,7 +8,8 @@ them), DetState.forward, TileForward.forward and rec_strips.
 call bit for bit on both unclip branches, and ocrjax's extract_boxes with
 traced thresholds at the goldens bar (boxes 1e-3 px, scores 1e-5, as
 test_torch_postprocess holds the float call).
-(iii) The caches' logic through a stand-in for torch.cuda.CUDAGraph that
+(iii) The caches' logic, the engine's program registry among them,
+through a stand-in for torch.cuda.CUDAGraph that
 lives here only: its capture records every aten operation between
 capture_begin and capture_end, and its replay runs them again in order,
 writing each result into the tensor the capture returned, as a CUDA
@@ -457,24 +458,85 @@ def test_pages_buffer_is_shared_and_padded(stand_in, eng, pages):
 
 def test_a_config_change_drops_the_graphs(stand_in, pages):
     e = _engine()
-    up, _ = _fused_inputs(e, pages[:2])
+    up, wh = _fused_inputs(e, pages[:2])
     st = api_det.det_state(e)
     st.forward(up)
     st.forward(up)
     assert len(st.program.stats()) == 1
     rec = graphs.program(e, "rec_strips", api_det._rec_strips)
+    fp = fused._fused_for(e, 4, 64, False)
+    fp(up, api_det.upload_thresholds(e), wh)
     e.config = e.config.replace(det_unclip_ratio=2.0)   # a threshold only
     st.forward(up)
     assert len(st.program.stats()) == 1
     assert graphs.program(e, "rec_strips", api_det._rec_strips) is rec
+    assert fused._fused_for(e, 4, 64, False) is fp
+    old = list(graphs.all_programs(e))
+    assert {p.name for p in old} >= {"det", "rec_strips", "fused",
+                                     "fused_rec"}
     e.config = e.config.replace(det_cc_iters=5)
+    # no program of the old config is left, the fused lane's included,
+    # and their graphs are gone
+    assert not [p for p in graphs.all_programs(e) if p in old]
+    assert all(p.stats() == {} for p in old)
     st.forward(up)
     assert [s["replays"] for s in st.program.stats().values()] == [0]
     assert graphs.program(e, "rec_strips", api_det._rec_strips) is not rec
+    assert fused._fused_for(e, 4, 64, False) is not fp
     fwd = tiling._tile_forward(e)
     fwd(up)
     e.config = e.config.replace(det_cc_iters=4)
     assert tiling._tile_forward(e) is not fwd
+
+
+def test_the_fused_lane_follows_a_rebuilt_detector(stand_in, pages):
+    """After engine._det = None (the CLI's and calibrate_unclip's detector
+    reset) and other weights loaded into the rebuilt engine.det_model,
+    the fused lane's graphs read the new detector."""
+    from ocrjax_torch import weights as W
+    e = _engine()
+    e.ocr_batch(pages[:2], fused=True)      # captured over the first one
+    before = _lines(e.ocr_batch(pages[:2], fused=True))
+    flat = W.model_variables(e.det_model)
+    rng = np.random.RandomState(3)
+    e._det = None
+    W.load_model_variables(e.det_model, {
+        k: (v * (1 + 0.05 * rng.standard_normal(v.shape))).astype(v.dtype)
+        for k, v in flat.items()})
+    with graphs.eager():
+        want = _lines(e.ocr_batch(pages[:2], fused=True))
+    assert want != before and any(lines for _, lines in want)
+    assert _lines(e.ocr_batch(pages[:2], fused=True)) == want
+    assert _lines(e.ocr_batch(pages[:2], fused=True)) == want
+
+
+def test_diag_rec_fetch_pools_every_chunk_s_pages(stand_in, monkeypatch,
+                                                  capsys):
+    """scripts/diag_rec_fetch over three same-shape chunks (a page each):
+    the pooled pages its warps read are those of graphs.eager(), though
+    every chunk's pages after the first come from a replay of gray_norm,
+    whose output the next replay overwrites."""
+    from ocrjax_torch.ops import warp
+    from ocrjax_torch.scripts import diag_rec_fetch
+    load = OcrEngine.from_pretrained
+    cfg = asset_config(det_max_side=SIZE, compute_dtype="float32",
+                       fused_chunk_pages=1)
+    monkeypatch.setattr(OcrEngine, "from_pretrained", classmethod(
+        lambda cls, **kw: load(config=cfg, device="cpu")))
+    seen = []
+    refined = warp.warp_quads_multi_refined
+
+    def spy(gray, *a, **k):
+        seen.append(gray[:3].clone())
+        return refined(gray, *a, **k)
+    monkeypatch.setattr(warp, "warp_quads_multi_refined", spy)
+    argv = ["--pages", "3", "--repeats", "1", "--cpu"]
+    with graphs.eager():
+        diag_rec_fetch.main(argv)
+    want, seen[:] = seen[0], []
+    diag_rec_fetch.main(argv)
+    assert "pages=3" in capsys.readouterr().out
+    assert seen and all(torch.equal(g, want) for g in seen)
 
 
 def test_k1_counts_every_replay(stand_in, monkeypatch, eng, pages):

@@ -1,9 +1,10 @@
 """The port's spans on the CPU: a span a call at the engine's entries,
 the host steps' spans, the worker threads' host stages and the span log
-(ocrjax_torch.utils.profiling), the Chrome trace that device_trace writes
-with no timer of the caller's, the stage marks inside the fused and
-pooled programs (which split a capture, so they must not change), and
-the benchmark's readers of the new spans."""
+(ocrjax_torch.utils.profiling), the lanes' lookahead (preprocess.lookahead)
+and its spans, the Chrome trace that device_trace writes with no timer of
+the caller's, the stage marks inside the fused and pooled programs (which
+split a capture, so they must not change), and the benchmark's readers of
+the new spans."""
 
 from __future__ import annotations
 
@@ -11,12 +12,13 @@ import glob
 import importlib.util
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
 import torch
 
-from ocrjax_torch import api_det, graphs
+from ocrjax_torch import api_det, graphs, preprocess
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.charset import Charset
 from ocrjax_torch.train import synth
@@ -141,6 +143,66 @@ def test_luma_lanes_load_once_inside_their_call(eng, pages, form):
             if s.name == "load_image"] == [(0, "ocr"), (1, "detect_tiled")]
     assert [(s.call, s.host_only) for s in spans
             if s.name == "tile_prep_work"] == [(2, True)]
+
+
+# ---------------------------------------------- (c) the lanes' lookahead --
+
+def test_lookahead_runs_the_next_item_while_the_caller_holds_this_one():
+    """preprocess.lookahead: item k + 1's work runs, on one thread apart
+    from the caller's and the decode pool's, while the caller holds item
+    k; the caller's wait is a stage an item, and so is each submit."""
+    started = [threading.Event() for _ in range(4)]
+    threads = set()
+
+    def work(k):
+        threads.add(threading.current_thread())
+        started[k].set()
+        return k * k
+
+    for submit in ("decode_submit", None):
+        timer = P.StageTimer("cpu")
+        got = []
+        with timer.active():
+            for k, out in enumerate(preprocess.lookahead(
+                    work, range(4), "host_decode", submit)):
+                got.append(out)
+                if k + 1 < 4:
+                    assert started[k + 1].wait(10), k
+        assert got == [0, 1, 4, 9]
+        want = ["host_decode"] if submit is None else [submit,
+                                                       "host_decode"]
+        assert [s.name for s in timer.spans] == want * 4
+        for e in started:
+            e.clear()
+    t, = threads
+    assert t is not threading.current_thread()
+    assert not t.name.startswith("ocrjax_torch-decode")
+
+
+@pytest.mark.parametrize("lane", ["bucketed", "fused", "tiled"])
+def test_the_lanes_lookahead_spans(eng, pages, lane):
+    """Each lane's wait for its lookahead, a stage a chunk (a page in the
+    tiled lane), follows its submit where the lane has one, on the
+    caller's thread; the work runs on other threads."""
+    run = {"bucketed": lambda: eng.ocr_batch(pages),
+           "fused": lambda: eng.ocr_batch(pages, fused=True),
+           "tiled": lambda: eng.ocr_tiled_batch(pages)}[lane]
+    timer = P.StageTimer("cpu")
+    with timer.active():
+        run()
+    spans = timer.spans
+    main = spans[0].thread
+    pipe = [s.name for s in spans if s.thread == main and s.name in
+            ("decode_submit", "host_decode", "tile_prep")]
+    work = [s for s in spans if s.name in ("decode", "tile_prep_work")]
+    if lane == "tiled":
+        assert pipe == ["tile_prep"] * len(pages)
+        assert {s.name for s in work} == {"tile_prep_work"}
+        assert len({s.thread for s in work}) == 1
+    else:                       # chunks of 2 pages
+        assert pipe == ["decode_submit", "host_decode"] * 2
+        assert {s.name for s in work} == {"decode"}
+    assert len(work) == len(pages) and main not in {s.thread for s in work}
 
 
 # ------------------------------------------------- (d) the operator trace --
