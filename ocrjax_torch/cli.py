@@ -158,16 +158,19 @@ def _make_engine(args):
 @contextlib.contextmanager
 def _profiled(args):
     """utils.profiling.device_trace over the run when --profile DIR: its
-    Chrome trace is written to DIR; the forms load_page kept the pages in
-    and, where the fused lane ran, the share of its line slots that it
-    recognized go to stderr."""
+    Chrome trace is written to DIR; the forms load_page kept the pages in,
+    where the fused lane ran the share of its line slots that it
+    recognized, and where the tiled lane ran the share of candidate pairs
+    its seam merge tested go to stderr."""
     if not args.profile:
         yield
         return
     from ocrjax_torch.fused import slot_counts
     from ocrjax_torch.preprocess import page_forms
+    from ocrjax_torch.tiling import seam_counts
     from ocrjax_torch.utils.profiling import device_trace
     before, forms = dict(slot_counts), dict(page_forms)
+    seams = dict(seam_counts)
     with device_trace(args.profile, "cpu" if args.cpu else "cuda"):
         yield
     f = {k: page_forms[k] - forms.get(k, 0) for k in ("luma", "rgb")}
@@ -181,6 +184,15 @@ def _profiled(args):
               f"({100 * n['recognized'] / n['slots']:.1f}%), "
               f"{n['occupied']} occupied, {n['chunks']} chunks",
               file=sys.stderr)
+    m = {k: seam_counts[k] - seams.get(k, 0)
+         for k in ("pages", "candidates", "pairs", "pairs_tested",
+                   "pairs_merged", "groups")}
+    if m["pages"]:
+        share = 100 * m["pairs_tested"] / max(m["pairs"], 1)
+        print(f"seam merge: {m['pairs_tested']} of {m['pairs']} pairs "
+              f"tested ({share:.1f}%), {m['pairs_merged']} merged, "
+              f"{m['candidates']} candidates -> {m['groups']} boxes, "
+              f"{m['pages']} pages", file=sys.stderr)
 
 
 def _quad_list(quad) -> List[List[float]]:

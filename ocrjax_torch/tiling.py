@@ -30,6 +30,8 @@ tile_prep_work.
 
 from __future__ import annotations
 
+import collections
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -94,64 +96,111 @@ def _seam_bands(corners: List[Tuple[int, int, int, int]]):
             bands([(y, y + th) for (y, _, th, _) in corners]))
 
 
-def _merge_seam_boxes(quads: List[np.ndarray], scores: List[float],
-                      iou_thresh: float, x_bands=(), tile_ids=None
-                      ) -> Tuple[List[np.ndarray], List[float]]:
+# the seam merge's work, summed over the pages merged (one
+# _merge_seam_boxes call a page): "pages", "candidates", "pairs" (the
+# pairs of a page's candidates, n * (n - 1) / 2), "pairs_tested" (those
+# whose y-ranges overlap, the only ones that can merge), "pairs_merged"
+# (those tested that merge) and "groups" (the boxes out);
+# pairs_tested / pairs is the share of the pairs tested
+seam_counts: collections.Counter = collections.Counter()
+_seam_counts_lock = threading.Lock()
+
+
+def _row_pairs(y0: np.ndarray, y1: np.ndarray):
+    """Index pairs (i, j) of the boxes whose y-ranges may overlap: every
+    pair with min(y1) > max(y0), and others (a zero-height box). Sorted by
+    y0, each box is paired with those after it that start above its
+    bottom edge."""
+    n = len(y0)
+    order = np.argsort(y0, kind="stable")
+    ends = np.searchsorted(y0[order], y1[order], side="left")
+    cnt = np.maximum(ends - np.arange(1, n + 1), 0)
+    a = np.repeat(np.arange(n), cnt)
+    b = a + 1 + np.arange(len(a)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    return order[a], order[b]
+
+
+def _merge_seam_boxes(quads, scores, iou_thresh: float, x_bands=(),
+                      tile_ids=None) -> Tuple[List[np.ndarray], List[float]]:
     """Union-merge seam duplicates (hull IoU above iou_thresh) and the
     fragments of one line cut by a seam: same row, x-ranges that meet or
     leave a gap of at most 1.5 line heights inside an overlap band. With
     tile_ids the fragment rule joins boxes of different tiles only (two
     neighbour lines of one tile may touch); the IoU rule ignores tiles.
-    The pair tests are vectorized over (n, n) hull matrices."""
+    quads: (n, 4, 2) float32 (an array or a list of quads).
+
+    Both rules need a positive row overlap (iou_thresh >= 0: an IoU above
+    it needs one; same_row needs 0.7 of a height of at least 1), so only
+    the pairs of _row_pairs are tested, each predicate in the reference's
+    float32 expression on the pair vectors; with iou_thresh < 0 every pair
+    is a duplicate. A group of one keeps its quad; a larger group becomes
+    its members' axis-aligned hull with their best score. Groups come in
+    the order of their first member."""
     n = len(quads)
-    parent = list(range(n))
-
-    def find(a):
-        while parent[a] != a:
-            parent[a] = parent[parent[a]]
-            a = parent[a]
-        return a
-
-    if n > 1:
-        q = np.stack(quads)
-        x0, y0 = q[:, :, 0].min(axis=1), q[:, :, 1].min(axis=1)
-        x1, y1 = q[:, :, 0].max(axis=1), q[:, :, 1].max(axis=1)
-        iw = np.minimum(x1[:, None], x1) - np.maximum(x0[:, None], x0)
-        ih = np.minimum(y1[:, None], y1) - np.maximum(y0[:, None], y0)
+    if n == 0:
+        with _seam_counts_lock:
+            seam_counts.update(pages=1)
+        return [], []
+    q = np.asarray(quads, np.float32)
+    s = np.asarray(scores)
+    x0, y0 = q[:, :, 0].min(axis=1), q[:, :, 1].min(axis=1)
+    x1, y1 = q[:, :, 0].max(axis=1), q[:, :, 1].max(axis=1)
+    root = np.arange(n)
+    tested = merged = 0
+    if iou_thresh < 0:
+        root[:] = 0
+    elif n > 1:
+        i, j = _row_pairs(y0, y1)
+        iw = np.minimum(x1[i], x1[j]) - np.maximum(x0[i], x0[j])
+        ih = np.minimum(y1[i], y1[j]) - np.maximum(y0[i], y0[j])
         inter = np.maximum(iw, 0) * np.maximum(ih, 0)
         area = (x1 - x0) * (y1 - y0)
-        iou = inter / np.maximum(area[:, None] + area - inter, 1e-9)
-        dup = iou > iou_thresh
-        min_h = np.maximum(np.minimum(
-            (y1 - y0)[:, None], (y1 - y0)[None, :]), 1.0)
+        iou = inter / np.maximum(area[i] + area[j] - inter, 1e-9)
+        h = y1 - y0
+        min_h = np.maximum(np.minimum(h[i], h[j]), 1.0)
         same_row = ih >= 0.7 * min_h
-        meet = iw >= 2.0
-        gap0 = np.minimum(x1[:, None], x1)
-        gap1 = np.maximum(x0[:, None], x0)
+        gap0 = np.minimum(x1[i], x1[j])
+        gap1 = np.maximum(x0[i], x0[j])
         small_gap = (gap1 - gap0) <= 1.5 * min_h
-        in_band = np.zeros((n, n), bool)
+        in_band = np.zeros(len(i), bool)
         for (b0, b1) in x_bands:
             in_band |= (gap0 >= b0 - 4.0) & (gap1 <= b1 + 4.0)
-        frag = same_row & (meet | (small_gap & in_band))
+        frag = same_row & ((iw >= 2.0) | (small_gap & in_band))
         if tile_ids is not None:
             t = np.asarray(tile_ids)
-            frag &= t[:, None] != t[None, :]
-        ii, jj = np.nonzero(np.triu(dup | frag, k=1))
-        for i, j in zip(ii.tolist(), jj.tolist()):
-            parent[find(i)] = find(j)
-
-    groups = {}
-    for i in range(n):
-        groups.setdefault(find(i), []).append(i)
-    out_q, out_s = [], []
-    for members in groups.values():
-        q, s = quads[members[0]], scores[members[0]]
-        for m in members[1:]:
-            q = geometry.merge_quads(q, quads[m])
-            s = max(s, scores[m])
-        out_q.append(q)
-        out_s.append(s)
-    return out_q, out_s
+            frag &= t[i] != t[j]
+        hit = (iou > iou_thresh) | frag
+        tested, merged = len(i), int(hit.sum())
+        # each box's label falls to the least label across its merging
+        # pairs, then to its label's label, until nothing moves: a label
+        # never exceeds its box, so it ends at the group's first member
+        a, b = i[hit], j[hit]
+        while True:
+            lab = root.copy()
+            m = np.minimum(root[a], root[b])
+            np.minimum.at(lab, a, m)
+            np.minimum.at(lab, b, m)
+            lab = lab[lab]
+            if np.array_equal(lab, root):
+                break
+            root = lab
+    order = np.argsort(root)
+    r = root[order]
+    starts = np.flatnonzero(np.r_[True, r[1:] != r[:-1]])
+    out = q[order[starts]]
+    multi = np.diff(np.r_[starts, n]) > 1
+    if multi.any():
+        hx0 = np.minimum.reduceat(x0[order], starts)[multi]
+        hy0 = np.minimum.reduceat(y0[order], starts)[multi]
+        hx1 = np.maximum.reduceat(x1[order], starts)[multi]
+        hy1 = np.maximum.reduceat(y1[order], starts)[multi]
+        out[multi] = np.stack([hx0, hy0, hx1, hy0, hx1, hy1, hx0, hy1],
+                              axis=1).reshape(-1, 4, 2)
+    with _seam_counts_lock:
+        seam_counts.update(pages=1, candidates=n, pairs=n * (n - 1) // 2,
+                           pairs_tested=tested, pairs_merged=merged,
+                           groups=len(starts))
+    return list(out), np.maximum.reduceat(s[order], starts).tolist()
 
 
 class TileForward(torch.nn.Module):
@@ -354,18 +403,15 @@ def _merge_page(engine, corners, boxes, scores, valid, h, w):
         log_fields(get_logger("ocrjax_torch.tiling"), "warning",
                    "tile candidate cap reached — page likely truncated",
                    cap=cap, tiles=len(corners))
-    quads, ss, tids = [], [], []
-    for t, (y, x, _, _) in enumerate(corners):
-        for i in np.where(valid[t])[0]:
-            q = boxes[t, i] + np.array([x, y], np.float32)
-            q[:, 0] = np.clip(q[:, 0], 0, w - 1)     # the unpadded page
-            q[:, 1] = np.clip(q[:, 1], 0, h - 1)
-            quads.append(q)
-            ss.append(float(scores[t, i]))
-            tids.append(t)
+    t, i = np.nonzero(valid)                 # tile-major, then row
+    off = np.asarray([(x, y) for (y, x, _, _) in corners], np.float32)
+    quads = boxes[t, i] + off[t][:, None, :]
+    quads[..., 0] = np.clip(quads[..., 0], 0, w - 1)   # the unpadded page
+    quads[..., 1] = np.clip(quads[..., 1], 0, h - 1)
     x_bands, _ = _seam_bands(corners)
-    merged = _merge_seam_boxes(quads, ss, engine.config.tile_merge_iou,
-                               x_bands, tile_ids=tids)
+    merged = _merge_seam_boxes(quads, scores[t, i],
+                               engine.config.tile_merge_iou, x_bands,
+                               tile_ids=t)
     return merged, saturated
 
 

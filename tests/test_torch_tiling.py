@@ -250,6 +250,24 @@ def test_ocr_tiled_batch_in_windows_matches_ocrjax(engines, cfg):
         == []
 
 
+def test_seam_counts_follow_a_windowed_batch(engines):
+    """tiling.seam_counts over one page of ocr_tiled_batch (four tiles, no
+    rot90 reroute): the pairs tested are a part of the page's pairs, and
+    the groups are the lines returned."""
+    _, port = engines
+    page = _batch_pages(port.charset)[0]
+    assert len(tiling.tile_plan(*page.shape, port.config)) == 4
+    before = dict(tiling.seam_counts)
+    res = port.ocr_tiled_batch([page])[0]
+    n = {k: tiling.seam_counts[k] - before.get(k, 0)
+         for k in ("pages", "candidates", "pairs", "pairs_tested",
+                   "pairs_merged", "groups")}
+    c = n["candidates"]
+    assert n["pages"] == 1 and n["pairs"] == c * (c - 1) // 2
+    assert n["pairs_merged"] <= n["pairs_tested"] <= n["pairs"]
+    assert n["groups"] == len(res.lines) >= 4
+
+
 def test_oom_halves_the_tile_batch(engines, monkeypatch):
     """A forward that runs out of device memory once: the group of two
     full tiles is redone as two halves, with the same result."""
