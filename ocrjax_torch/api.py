@@ -26,6 +26,7 @@ from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.models.cls import create_cls
 from ocrjax_torch.models.crnn import create_crnn
 from ocrjax_torch.models.db import create_db
+from ocrjax_torch.models.svtr import create_svtr
 from ocrjax_torch.utils.logging import get_logger, log_fields
 from ocrjax_torch.utils.profiling import entry
 
@@ -90,6 +91,17 @@ def asset_config(path: str = None, metas=None, **overrides) -> OcrConfig:
                         for k, v in cfg.items()})
 
 
+def create_recognizer(config: OcrConfig, num_classes: int
+                      ) -> torch.nn.Module:
+    """The recognizer that config.rec_arch names: the CRNN or SVTR."""
+    if config.rec_arch == "svtr":
+        return create_svtr(config, num_classes)
+    if config.rec_arch == "crnn":
+        return create_crnn(config, num_classes)
+    raise ValueError(f"unknown rec_arch {config.rec_arch!r}: 'crnn' or "
+                     f"'svtr'")
+
+
 def _build(module: torch.nn.Module, sd, seed: int, device) -> torch.nn.Module:
     if sd is None:
         W.init_random_(module, seed)
@@ -103,8 +115,11 @@ class OcrEngine:
 
     rec_weights / det_weights / cls_weights: flax-layout {path: array}
     dicts (weights.read_safetensors); None gives random weights from
-    `seed`. tile_det_weights with its tile_det_arch (the tile asset's
-    `arch` metadata) builds the dedicated tile detector of the tiled lanes;
+    `seed`. The recognizer is the one config.rec_arch names (the CRNN or
+    SVTR), built here and kept: a later config of another rec_arch is
+    refused by the lanes (api_det.rec_decode), never run on this one.
+    tile_det_weights with its tile_det_arch (the tile asset's `arch`
+    metadata) builds the dedicated tile detector of the tiled lanes;
     without it they run the flagship detector.
 
     Every device program the engine runs is an entry of its one registry
@@ -136,10 +151,12 @@ class OcrEngine:
         self.config = config or OcrConfig()
         self.charset = charset or default_charset()
         cfg = self.config
+        # the recognizer that cfg.rec_arch names; its flat weights in the
+        # layout weights.rec_state_dict reads for that architecture
         self.rec_model = _build(
-            create_crnn(cfg, self.charset.num_classes),
-            rec_weights and W.crnn_state_dict(rec_weights)[0], seed,
-            self.device)
+            create_recognizer(cfg, self.charset.num_classes),
+            rec_weights and W.rec_state_dict(rec_weights, cfg.rec_arch)[0],
+            seed, self.device)
         # the detectors are built from the config in force when they are
         # first needed (det_model, tile_det_model); their weights stay here
         self._det_weights = {"det": det_weights,
@@ -244,29 +261,31 @@ class OcrEngine:
 
     def _rec_step(self, batch_u8: torch.Tensor, widths: torch.Tensor,
                   beam: bool = False, seg_ids: torch.Tensor = None):
-        """normalize -> [dewarp] -> CRNN -> CTC over a (N, H, W) uint8
-        batch; with seg_ids (rec_try_flip) the orientation stage runs after
-        the dewarp, seg_ids grouping the strips for its page prior, and the
-        flip decisions come back as a fourth tensor. The dewarp comes
+        """normalize -> [dewarp] -> recognizer -> CTC over a (N, H, W)
+        uint8 batch; with seg_ids (rec_try_flip) the orientation stage runs
+        after the dewarp, seg_ids grouping the strips for its page prior,
+        and the flip decisions come back as a fourth tensor. The dewarp comes
         before the orientation stage here, as in the reference's C1
         programs (the staged lanes flip first). A program keyed per (N,
         bucket width), whose static outputs the next call of the same
         shape overwrites."""
         from ocrjax_torch import graphs
+        from ocrjax_torch.api_det import count_rec
+        count_rec(batch_u8.shape[0], batch_u8.shape[-1])
         return graphs.program(self, "rec_step", OcrEngine._rec_step_run)(
             self, batch_u8, widths, beam, seg_ids)
 
     def _rec_step_run(self, batch_u8, widths, beam, seg_ids):
-        from ocrjax_torch.api_det import _cls_flip_strips, crnn_decode
+        from ocrjax_torch.api_det import _cls_flip_strips, rec_decode
         from ocrjax_torch.ops.warp import maybe_dewarp_curl
         cfg = self.config
         with torch.inference_mode():
             x = preprocess.rec_normalize(batch_u8, cfg.rec_mean, cfg.rec_std)
             strips = maybe_dewarp_curl(x[:, 0], widths, cfg)
             if seg_ids is None:
-                return crnn_decode(self, strips, widths, beam)
+                return rec_decode(self, strips, widths, beam)
             strips, flipped = _cls_flip_strips(self, strips, widths, seg_ids)
-            return (*crnn_decode(self, strips, widths, beam), flipped)
+            return (*rec_decode(self, strips, widths, beam), flipped)
 
     @entry
     def recognize_strips(self, strips: Sequence[np.ndarray],

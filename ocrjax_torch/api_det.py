@@ -24,6 +24,7 @@ None of it changes a result.
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -283,20 +284,40 @@ def decode(engine, logits: torch.Tensor, frame_lengths: torch.Tensor,
                                      max_tokens=cfg.rec_max_tokens)
 
 
-def crnn_decode(engine, strips: torch.Tensor, widths: torch.Tensor,
-                beam: bool = False):
-    """CRNN and CTC over normalized device strips (N, H, W) -> (tokens
-    (N, T), n_tokens (N,), conf (N,)) device tensors."""
-    with stage("crnn"):
+def rec_decode(engine, strips: torch.Tensor, widths: torch.Tensor,
+               beam: bool = False):
+    """The recognizer and CTC over normalized device strips (N, H, W) ->
+    (tokens (N, T), n_tokens (N,), conf (N,)) device tensors; every lane
+    reaches the recognizer here. The forward is the stage named after the
+    architecture, cfg.rec_arch: "crnn" or "svtr". An engine whose
+    recognizer is not the one the config names is refused."""
+    arch = engine.config.rec_arch
+    if engine.rec_model.arch != arch:
+        raise ValueError(
+            f"rec_arch is {arch!r} but the engine's recognizer is a "
+            f"{engine.rec_model.arch!r}: build the engine with the config "
+            f"that names its recognizer")
+    with stage(arch):
         logits, frame_lengths = engine.rec_model(strips[:, None], widths)
     return decode(engine, logits, frame_lengths, beam)
+
+
+# strips the recognizer ran and the grid columns (W / 4 a strip, the CTC
+# frames) it computed: count-bucket rows x bucket width / 4 a call, summed
+# on the host from the shapes each lane passes to its recognition program
+# (no device read); the CLI's --profile prints them
+rec_counts: collections.Counter = collections.Counter()
+
+
+def count_rec(rows: int, width: int) -> None:
+    rec_counts.update(strips=rows, columns=rows * (width // 4))
 
 
 @torch.inference_mode()
 def _rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
                 beam: bool = False):
     strips = warp_lib.maybe_dewarp_curl(strips, widths, engine.config)
-    return crnn_decode(engine, strips, widths, beam)
+    return rec_decode(engine, strips, widths, beam)
 
 
 def rec_strips(engine, strips: torch.Tensor, widths: torch.Tensor,
@@ -585,6 +606,7 @@ def ocr(engine, image, beam: bool = False, force_staged: bool = False,
         engine, canvas_dev, upload(engine, quads_canvas.astype(np.float32)),
         upload(engine, page_bounds),
         upload(engine, quads_orig_canvas.astype(np.float32)), bucket_w)
+    count_rec(nb, bucket_w)
     if cfg.rec_try_flip:
         # the page's lines share one prior group; each pad row (a copy of
         # the last quad) votes alone

@@ -215,6 +215,8 @@ def run_bench(pages: int = 16, lines: int = 256, repeats: int = 3,
     engine.config = engine.config.replace(
         fused_lines_per_page=16, det_max_side=int(traffic["pages"].shape[1]))
     cfg = engine.config
+    from ocrjax_torch.config import require_crnn
+    require_crnn(cfg, "the bench's CRNN roofline")
 
     def sync():
         if on_card:

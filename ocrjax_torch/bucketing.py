@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ocrjax_torch import geometry, graphs, preprocess
+from ocrjax_torch.api_det import count_rec
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
 from ocrjax_torch.utils.profiling import add_bytes, current, stage
@@ -176,6 +177,7 @@ def recognize_pooled(engine, gray_dev: torch.Tensor, page_ids: np.ndarray,
     with stage("rec_dispatch"):
         for bucket_w, idx, sep in chunks:
             sel = padded(idx)
+            count_rec(len(sel), bucket_w)
             flips = upload(engine, flips_all[sel]) if try_flip else None
             # a copy: a later chunk of this shape replays over the
             # program's output before the rows are concatenated

@@ -160,17 +160,19 @@ def _profiled(args):
     """utils.profiling.device_trace over the run when --profile DIR: its
     Chrome trace is written to DIR; the forms load_page kept the pages in,
     where the fused lane ran the share of its line slots that it
-    recognized, and where the tiled lane ran the share of candidate pairs
-    its seam merge tested go to stderr."""
+    recognized, where the tiled lane ran the share of candidate pairs
+    its seam merge tested, and the strips and grid columns the recognizer
+    ran go to stderr."""
     if not args.profile:
         yield
         return
+    from ocrjax_torch.api_det import rec_counts
     from ocrjax_torch.fused import slot_counts
     from ocrjax_torch.preprocess import page_forms
     from ocrjax_torch.tiling import seam_counts
     from ocrjax_torch.utils.profiling import device_trace
     before, forms = dict(slot_counts), dict(page_forms)
-    seams = dict(seam_counts)
+    seams, recs = dict(seam_counts), dict(rec_counts)
     with device_trace(args.profile, "cpu" if args.cpu else "cuda"):
         yield
     f = {k: page_forms[k] - forms.get(k, 0) for k in ("luma", "rgb")}
@@ -193,6 +195,10 @@ def _profiled(args):
               f"tested ({share:.1f}%), {m['pairs_merged']} merged, "
               f"{m['candidates']} candidates -> {m['groups']} boxes, "
               f"{m['pages']} pages", file=sys.stderr)
+    r = {k: rec_counts[k] - recs.get(k, 0) for k in ("strips", "columns")}
+    if r["strips"]:
+        print(f"recognition: {r['strips']} strips, {r['columns']} grid "
+              f"columns", file=sys.stderr)
 
 
 def _quad_list(quad) -> List[List[float]]:

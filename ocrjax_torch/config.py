@@ -1,8 +1,14 @@
 """Frozen pipeline configuration: the port's own copy of ocrjax.config.
 
 Every field of ocrjax's OcrConfig is kept, with the same name, type and
-default, so the `config` JSON in an asset's metadata parses the same way in
-both packages. See ocrjax/config.py for the measurements behind each default.
+default and in the same order, so the `config` JSON in an asset's metadata
+parses the same way in both packages. See ocrjax/config.py for the
+measurements behind each default. The port's own fields come after them:
+`rec_arch` names the recognizer ("crnn", the default and ocrjax's only
+one, or "svtr", models/svtr.py), `rec_compute_dtype` the recognizer's
+compute dtype where it differs from the detector's (`compute_dtype`), and
+the `svtr_*` fields are SVTR's widths (SVTR-L's by default, arXiv:2205.00159
+Table 1); a CRNN ignores them.
 
 The port acts on every field as the reference does. The transport fields
 say how a lane's results leave the card (ops.bytepack); none of them
@@ -109,6 +115,17 @@ class OcrConfig:
     fetch_max_tokens: int = 48       # token columns a line fetched first
     det_fetch_candidates: int = 64   # candidate slots a page fetched first
 
+    # --- the recognizer (the port's own fields, after ocrjax's) ---
+    rec_arch: str = "crnn"           # "crnn" or "svtr" (models/svtr.py)
+    rec_compute_dtype: str = ""      # the recognizer's; "": compute_dtype
+    svtr_dims: Tuple[int, ...] = (192, 256, 512)    # SVTR-L's three stages
+    svtr_depths: Tuple[int, ...] = (3, 9, 9)
+    svtr_heads: Tuple[int, ...] = (6, 8, 16)
+    svtr_local_blocks: int = 10      # the first blocks attend in a window
+    svtr_window: Tuple[int, ...] = (7, 11)          # rows x columns
+    svtr_mlp_ratio: int = 4
+    svtr_out_channels: int = 384     # the combining layer before the head
+
     def replace(self, **kw) -> "OcrConfig":
         return dataclasses.replace(self, **kw)
 
@@ -125,6 +142,15 @@ class OcrConfig:
             if n <= b:
                 return b
         return self.line_batch_buckets[-1]
+
+
+def require_crnn(config: OcrConfig, what: str) -> None:
+    """The CRNN-only entries (the rec trainer, the tensor-parallel CRNN of
+    parallel/mesh.py, the bench's CRNN roofline) refuse a config whose
+    rec_arch names another recognizer, rather than run the CRNN."""
+    if config.rec_arch != "crnn":
+        raise ValueError(f"{what} serves the CRNN only; rec_arch is "
+                         f"{config.rec_arch!r}")
 
 
 # A small config for unit tests on the CPU: tiny model dims, short buckets.

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ocrjax_torch import geometry, graphs, preprocess
+from ocrjax_torch.api_det import count_rec
 from ocrjax_torch.models import db_int8
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops import warp as warp_lib
@@ -148,6 +149,7 @@ class FusedOcr:
         sizes = rec_row_chunks(self.cfg, n_valid, slots)
         slot_counts.update(chunks=1, slots=slots, occupied=n_valid,
                            recognized=sum(sizes))
+        count_rec(sum(sizes), self.W)
         return self.rec_program(*out, sizes)
 
     @torch.inference_mode()
@@ -238,15 +240,15 @@ class FusedOcr:
                    flip: torch.Tensor, quads: torch.Tensor,
                    top_s: torch.Tensor, sizes: Tuple[int, ...]
                    ) -> torch.Tensor:
-        from ocrjax_torch.api_det import crnn_decode
+        from ocrjax_torch.api_det import rec_decode
         cfg, eng, K = self.cfg, self.engine, self.K
         B, T = line_valid.shape[0], cfg.rec_max_tokens
         dev = strips.device
         passes, off = [], 0
         for n in sizes:
             idx = order[off:off + n]
-            passes.append(crnn_decode(eng, strips[idx], widths[idx],
-                                      self.beam))
+            passes.append(rec_decode(eng, strips[idx], widths[idx],
+                                     self.beam))
             off += n
         if passes:
             rows = [torch.cat(r) for r in zip(*passes)]

@@ -213,6 +213,7 @@ class CRNN(nn.Module):
     """
 
     tp = None
+    arch = "crnn"
 
     def __init__(self, num_classes: int, hidden: int = 256,
                  channels: Sequence[int] = (64, 128, 256, 512),
@@ -274,7 +275,13 @@ def compute_dtype(config) -> torch.dtype:
     return getattr(torch, config.compute_dtype)
 
 
+def rec_dtype(config) -> torch.dtype:
+    """The recognizer's compute dtype: rec_compute_dtype, else
+    compute_dtype."""
+    return getattr(torch, config.rec_compute_dtype or config.compute_dtype)
+
+
 def create_crnn(config, num_classes: int) -> CRNN:
     return CRNN(num_classes=num_classes, hidden=config.rec_hidden,
                 channels=tuple(config.rec_conv_channels),
-                input_height=config.rec_height, dtype=compute_dtype(config))
+                input_height=config.rec_height, dtype=rec_dtype(config))

@@ -359,8 +359,13 @@ def attach(mesh: DeviceMesh, model: torch.nn.Module, opt) -> None:
 def make_sharded_rec_train_step(model, tx, mesh: DeviceMesh):
     """THE production rec step (train.rec_trainer.make_train_step, not a
     copy) with the mesh's collectives: the batch is this rank's
-    shard_batch slice, the parameters as shard_params left them."""
+    shard_batch slice, the parameters as shard_params left them; a CRNN
+    only."""
     from ocrjax_torch.train.rec_trainer import make_train_step
+    arch = getattr(model, "arch", None)
+    if arch != "crnn":
+        raise ValueError(f"the tensor-parallel rec step serves the CRNN "
+                         f"only; rec_arch is {arch!r}")
     attach(mesh, model, tx)
     return make_train_step(model, tx)
 
@@ -373,8 +378,10 @@ def init_sharded_rec_state(config, charset, mesh: DeviceMesh,
     local shards (no clip or schedule, as the reference's optax.adam(lr)).
     -> (model, tx); `width` is the reference's init width, unused here."""
     from ocrjax_torch import weights as W
+    from ocrjax_torch.config import require_crnn
     from ocrjax_torch.models.crnn import create_crnn
     from ocrjax_torch.train.optim import Adam, trainable
+    require_crnn(config, "the tensor-parallel CRNN")
     del width
     model = create_crnn(config, charset.num_classes)
     W.init_random_(model, seed)

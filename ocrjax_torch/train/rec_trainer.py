@@ -28,7 +28,7 @@ import torch
 from ocrjax_torch import graphs, preprocess
 from ocrjax_torch import weights as W
 from ocrjax_torch.charset import Charset, default_charset
-from ocrjax_torch.config import OcrConfig
+from ocrjax_torch.config import OcrConfig, require_crnn
 from ocrjax_torch.models.crnn import create_crnn
 from ocrjax_torch.ops import ctc
 from ocrjax_torch.train import synth
@@ -166,8 +166,9 @@ def train_rec(
     if mesh is not None:
         from ocrjax_torch.parallel import mesh as M
         log, device = M.rank0_log(log), str(M.mesh_device(mesh))
-    dev = train_device(device)
     config = config or OcrConfig()
+    require_crnn(config, "the rec trainer")
+    dev = train_device(device)
     charset = charset or default_charset()
     model = create_crnn(config, charset.num_classes)
     if init_variables is not None:

@@ -13,6 +13,7 @@ Layout maps (the port of ocrjax/weights.py's tables):
           (lax.conv_transpose does not mirror the kernel the way
           torch's conv_transpose2d does)
   linear  flax (I, O)          -> torch (O, I)
+  vec     as it is (biases, norms, SVTR's positional embedding)
   lstm    flax per-gate ii/if/ig/io (input, no bias) + hi/hf/hg/ho (hidden,
           with bias) -> torch packed (4H, .) rows in gate order i, f, g, o;
           the flax bias goes to bias_hh and bias_ih is zero
@@ -247,6 +248,52 @@ def _db_key_table(channels=(64, 128, 256, 512), blocks_per_stage=2,
     return t
 
 
+def _ln_entries(flax_mod: str, torch_mod: str) -> Table:
+    return [(f"params/{flax_mod}/scale", f"{torch_mod}.weight", "vec"),
+            (f"params/{flax_mod}/bias", f"{torch_mod}.bias", "vec")]
+
+
+def _dense_entries(flax_mod: str, torch_mod: str, bias: bool = True
+                   ) -> Table:
+    t = [(f"params/{flax_mod}/kernel", f"{torch_mod}.weight", "linear")]
+    if bias:
+        t.append((f"params/{flax_mod}/bias", f"{torch_mod}.bias", "vec"))
+    return t
+
+
+def _svtr_key_table(n_blocks: int) -> Table:
+    """models.svtr.SVTR of n_blocks blocks; the flat names are those the
+    benchmark's reference/rec_svtr.py draws and reads."""
+    t: Table = []
+    for i in range(2):
+        t.append((f"params/PatchEmbed_0/Conv_{i}/kernel", f"embed{i}.weight",
+                  "conv"))
+        t += _bn_entries(f"PatchEmbed_0/BatchNorm_{i}", f"bn{i}")
+    t.append(("params/pos_embed", "pos_embed", "vec"))
+    for k in range(n_blocks):
+        fl, tm = f"Block_{k}", f"blocks.{k}"
+        for sub, name in (("Attention_0/qkv", "qkv"),
+                          ("Attention_0/proj", "proj"),
+                          ("Mlp_0/Dense_0", "fc1"), ("Mlp_0/Dense_1", "fc2")):
+            t += _dense_entries(f"{fl}/{sub}", f"{tm}.{name}")
+        for i in range(2):
+            t += _ln_entries(f"{fl}/LayerNorm_{i}", f"{tm}.norm{i + 1}")
+    for j in range(2):
+        t.append((f"params/SubSample_{j}/Conv_0/kernel",
+                  f"merges.{j}.conv.weight", "conv"))
+        t.append((f"params/SubSample_{j}/Conv_0/bias",
+                  f"merges.{j}.conv.bias", "vec"))
+        t += _ln_entries(f"SubSample_{j}/LayerNorm_0", f"merges.{j}.norm")
+    t += _dense_entries("Dense_0", "combine", bias=False)
+    t += _dense_entries("Dense_1", "fc")
+    return t
+
+
+def _svtr_blocks(flat: Mapping) -> int:
+    return len({k.split("/")[1] for k in flat
+                if k.startswith("params/Block_")})
+
+
 def _cls_key_table(n_convs: int = 3) -> Table:
     t: Table = []
     for i in range(n_convs):
@@ -302,6 +349,13 @@ def crnn_variables(sd: Mapping) -> Dict[str, np.ndarray]:
     return flat
 
 
+def svtr_variables(sd: Mapping) -> Dict[str, np.ndarray]:
+    """models.svtr.SVTR state dict -> flat flax-style variables (the
+    inverse of svtr_state_dict)."""
+    n = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    return _to_table(_np_sd(sd), _svtr_key_table(n))
+
+
 def db_variables(sd: Mapping, arch: Mapping) -> Dict[str, np.ndarray]:
     """models.db.DBDetector state dict -> flat flax variables (the inverse
     of db_state_dict)."""
@@ -324,6 +378,23 @@ def crnn_state_dict(flat: Mapping) -> Tuple[Dict[str, np.ndarray], List[str]]:
                         ("OptimizedLSTMCell_1", "bwd")]:
             used += _lstm_f2t(sd, flat, f"params/{bl}/{cell}", f"{pfx}.{d}")
     return sd, used
+
+
+def svtr_state_dict(flat: Mapping) -> Tuple[Dict[str, np.ndarray],
+                                             List[str]]:
+    """Flat SVTR variables -> (models.svtr.SVTR state dict, keys read)."""
+    return _from_table(flat, _svtr_key_table(_svtr_blocks(flat)))
+
+
+def rec_state_dict(flat: Mapping, arch: str
+                   ) -> Tuple[Dict[str, np.ndarray], List[str]]:
+    """The recognizer named by `arch` (OcrConfig.rec_arch): its state
+    dict from flat variables, and the keys read."""
+    if arch == "svtr":
+        return svtr_state_dict(flat)
+    if arch == "crnn":
+        return crnn_state_dict(flat)
+    raise ValueError(f"unknown rec_arch {arch!r}: 'crnn' or 'svtr'")
 
 
 def db_state_dict(flat: Mapping, arch: Mapping
@@ -358,14 +429,17 @@ def conv_bn_from_flax(flat: Mapping, module: str, eps: float = 1e-5
 
 
 def model_variables(model: torch.nn.Module) -> Dict[str, np.ndarray]:
-    """A CRNN, DBDetector or OrientationClassifier -> its flat flax
+    """A CRNN, SVTR, DBDetector or OrientationClassifier -> its flat flax
     variables (params and batch_stats), for save_variables."""
     from ocrjax_torch.models.cls import OrientationClassifier
     from ocrjax_torch.models.crnn import CRNN
     from ocrjax_torch.models.db import DBDetector
+    from ocrjax_torch.models.svtr import SVTR
     sd = model.state_dict()
     if isinstance(model, CRNN):
         return crnn_variables(sd)
+    if isinstance(model, SVTR):
+        return svtr_variables(sd)
     if isinstance(model, DBDetector):
         return db_variables(sd, model.arch)
     if isinstance(model, OrientationClassifier):
@@ -379,8 +453,11 @@ def load_model_variables(model: torch.nn.Module, flat: Mapping) -> None:
     from ocrjax_torch.models.cls import OrientationClassifier
     from ocrjax_torch.models.crnn import CRNN
     from ocrjax_torch.models.db import DBDetector
+    from ocrjax_torch.models.svtr import SVTR
     if isinstance(model, CRNN):
         sd = crnn_state_dict(flat)[0]
+    elif isinstance(model, SVTR):
+        sd = svtr_state_dict(flat)[0]
     elif isinstance(model, DBDetector):
         sd = db_state_dict(flat, model.arch)[0]
     elif isinstance(model, OrientationClassifier):

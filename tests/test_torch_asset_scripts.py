@@ -22,9 +22,9 @@ import numpy as np
 import pytest
 
 import chip_smoke as CS
-from test_torch_fixture import (few_torch_threads,  # noqa: F401
-                                jax_modules, no_jax_disk_cache,
-                                reference_script)
+from test_torch_fixture import (PORT_ONLY,  # noqa: F401
+                                few_torch_threads, jax_modules,
+                                no_jax_disk_cache, reference_script)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _port(name):
@@ -60,8 +60,10 @@ class _Result:
 def _plain(v):
     """A kwarg's value in a form both packages' values compare in."""
     if dataclasses.is_dataclass(v):
+        # the port's own config fields compare where a script set them
         return {f.name: _plain(getattr(v, f.name))
-                for f in dataclasses.fields(v)}
+                for f in dataclasses.fields(v)
+                if f.name not in PORT_ONLY or getattr(v, f.name) != f.default}
     if callable(v) and not hasattr(v, "config"):
         return "<callable>"
     if hasattr(v, "config") and hasattr(v, "charset"):      # an OcrEngine

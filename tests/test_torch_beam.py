@@ -7,7 +7,6 @@ lanes the goldens bar (identical strings and order, box corners within
 0.011 px, scores and confidences within 2e-3).
 """
 
-import dataclasses
 import json
 import os
 
@@ -25,7 +24,7 @@ from ocrjax.train import synth
 from ocrjax_torch import api_det
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.ops import ctc
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V_SHIPPED = 96     # the shipped charset's classes, blank included
@@ -132,7 +131,7 @@ def test_beam_step_keeps_the_state_of_finished_sequences():
 def engines():
     cfg = asset_config(det_max_side=512, compute_dtype="float32")
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

@@ -18,7 +18,6 @@ line slots read 0), and within the goldens bar
 (2e-3).
 """
 
-import dataclasses
 import os
 
 import numpy as np
@@ -30,7 +29,7 @@ from ocrjax_torch.charset import Charset, default_charset
 from ocrjax_torch.config import TINY
 from ocrjax_torch.ops.bytepack import (HostCopy, bytes_to_f32, f32_to_bytes,
                                        use_byte_fetch)
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOX_TOL = 0.011
@@ -232,7 +231,7 @@ def asset_engines():
                                fetch_bytes=fetch_bytes,
                                rec_try_flip=try_flip)
             made[key] = (JaxEngine.from_pretrained(
-                config=JaxConfig(**dataclasses.asdict(cfg))),
+                config=JaxConfig(**jax_fields(cfg))),
                 OcrEngine.from_pretrained(config=cfg, device="cpu"))
         return made[key]
     return get

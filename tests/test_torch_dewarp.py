@@ -11,7 +11,6 @@ order, boxes within 0.011 px, scores within 2e-3), strip confidences within
 1e-5.
 """
 
-import dataclasses
 import os
 import sys
 
@@ -27,7 +26,7 @@ from ocrjax.train import synth
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.models import cls as cls_lib
 from ocrjax_torch.ops import warp as twarp
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 from test_torch_slice import _assert_same
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -80,7 +79,7 @@ def test_maybe_dewarp_curl_follows_the_config():
         rec_dewarp_curl=False)) is s
     want = np.asarray(jwarp.maybe_dewarp_curl(
         jnp.asarray(strips), jnp.asarray(widths),
-        JaxConfig(**dataclasses.asdict(cfg))))
+        JaxConfig(**jax_fields(cfg))))
     np.testing.assert_allclose(twarp.maybe_dewarp_curl(s, w, cfg).numpy(),
                                want, rtol=0, atol=1e-5)
 
@@ -118,7 +117,7 @@ def engines():
         cfg = asset_config(det_max_side=512, compute_dtype="float32",
                            rec_dewarp_curl=True, rec_try_flip=flip)
         out[flip] = (JaxEngine.from_pretrained(config=JaxConfig(
-            **dataclasses.asdict(cfg))),
+            **jax_fields(cfg))),
             OcrEngine.from_pretrained(config=cfg, device="cpu"))
     return out
 

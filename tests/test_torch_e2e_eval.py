@@ -6,7 +6,6 @@ draws ocrjax's pages bit for bit, with the degradation and geometry tiers
 too, and the edit distance is ocrjax's.
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -17,14 +16,14 @@ from ocrjax.train import e2e_eval as jeval
 from ocrjax.train import synth as jsynth
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.train import e2e_eval
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 
 @pytest.fixture(scope="module")
 def engines():
     cfg = asset_config(det_max_side=512, compute_dtype="float32")
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

@@ -10,7 +10,6 @@ refetch costs a second copy and never a result: every result equals
 that of whole fetches.
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -18,7 +17,8 @@ import pytest
 from ocrjax_torch.api import OcrEngine
 from ocrjax_torch.ops import bytepack
 from test_torch_fetch_trunc import _diff_results
-from test_torch_fixture import PAGES, few_torch_threads  # noqa: F401
+from test_torch_fixture import (  # noqa: F401
+    PAGES, few_torch_threads, jax_fields)
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +39,7 @@ def _engines(**over):
     from ocrjax_torch.api import asset_config
     cfg = asset_config(det_max_side=512, compute_dtype="float32", **over)
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

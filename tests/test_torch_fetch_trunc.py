@@ -18,7 +18,6 @@ states on a dense-then-sparse stream against ocrjax's
 (tests/test_torch_fetch_counts.py holds the refetch counts to ocrjax's).
 """
 
-import dataclasses
 import os
 
 import numpy as np
@@ -30,7 +29,8 @@ from ocrjax_torch.charset import default_charset
 from ocrjax_torch.config import TINY
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.ops.bytepack import truncate_tokens
-from test_torch_fixture import PAGES, few_torch_threads  # noqa: F401
+from test_torch_fixture import (  # noqa: F401
+    PAGES, few_torch_threads, jax_fields)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -203,7 +203,7 @@ def _engines(**over):
     from ocrjax_torch.api import asset_config
     cfg = asset_config(det_max_side=512, compute_dtype="float32", **over)
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

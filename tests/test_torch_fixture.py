@@ -135,6 +135,29 @@ def render_pages() -> np.ndarray:
     return np.stack(pages)
 
 
+def _port_only() -> tuple:
+    import dataclasses
+
+    from ocrjax.config import OcrConfig as JaxConfig
+    from ocrjax_torch.config import OcrConfig
+    theirs = {f.name for f in dataclasses.fields(JaxConfig)}
+    return tuple(f.name for f in dataclasses.fields(OcrConfig)
+                 if f.name not in theirs)
+
+
+# the port's own config fields, which ocrjax's OcrConfig does not have (the
+# recognizer's name, its compute dtype and SVTR's widths), in their order
+PORT_ONLY = _port_only()
+
+
+def jax_fields(cfg) -> dict:
+    """The port's config as ocrjax's OcrConfig keywords: its fields less
+    the port's own (PORT_ONLY)."""
+    import dataclasses
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in PORT_ONLY}
+
+
 def asset_config(**overrides):
     """ocrjax OcrConfig from the assets' `config` metadata (rec, then det),
     plus overrides — what from_pretrained builds when given no config."""

@@ -24,7 +24,7 @@ import torch
 
 from ocrjax_torch import bucketing, fused, graphs, preprocess
 from ocrjax_torch.api import OcrEngine, OcrResult, asset_config
-from ocrjax_torch.api_det import crnn_decode, upload_thresholds
+from ocrjax_torch.api_det import rec_decode, upload_thresholds
 from ocrjax_torch.charset import Charset
 from ocrjax_torch.ops import bytepack
 from ocrjax_torch.train import synth
@@ -87,12 +87,12 @@ def _rows(fp, eng, pages):
 
 
 def _check_against_all_slots(eng, first, out):
-    """(a): the occupied slots against crnn_decode over every slot's
+    """(a): the occupied slots against rec_decode over every slot's
     strip; the empty slots 0."""
     strips, widths, valid = first[0], first[1], out["valid"]
     B, K = valid.shape
     with torch.inference_mode():
-        tokens, n_tokens, conf = (t.numpy() for t in crnn_decode(
+        tokens, n_tokens, conf = (t.numpy() for t in rec_decode(
             eng, strips, widths))
     v = valid.reshape(-1)
     assert v.any()

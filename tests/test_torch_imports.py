@@ -2,7 +2,8 @@
 port (its CLI and scripts included), and not chip_smoke.py, imports JAX,
 ocrjax or the repository's reference scripts/;
 importing the API or the CLI pulls neither in; the engine refuses to run without CUDA unless asked for the
-CPU; its config has exactly ocrjax's fields and defaults."""
+CPU; its config has exactly ocrjax's fields and defaults, in ocrjax's
+order, followed by the port's own recognizer fields."""
 
 import ast
 import dataclasses
@@ -109,7 +110,15 @@ def test_engine_defaults_to_cuda():
 
 def test_config_mirrors_ocrjax():
     from ocrjax.config import TINY as JAX_TINY, OcrConfig as JaxConfig
+    from test_torch_fixture import PORT_ONLY
     from ocrjax_torch.config import TINY, OcrConfig
-    assert [(f.name, f.default) for f in dataclasses.fields(OcrConfig)] == \
-        [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
-    assert dataclasses.asdict(TINY) == dataclasses.asdict(JAX_TINY)
+    ours = [(f.name, f.default) for f in dataclasses.fields(OcrConfig)]
+    theirs = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+    assert ours[:len(theirs)] == theirs
+    assert tuple(n for n, _ in ours[len(theirs):]) == PORT_ONLY
+    assert OcrConfig().rec_arch == "crnn"
+    tiny = dataclasses.asdict(TINY)
+    assert {k: tiny[k] for k in dataclasses.asdict(JAX_TINY)} == \
+        dataclasses.asdict(JAX_TINY)
+    assert {k: tiny[k] for k in PORT_ONLY} == \
+        {k: getattr(OcrConfig(), k) for k in PORT_ONLY}

@@ -13,7 +13,6 @@ own fold, strings, order and boxes at the bar and the scores within 0.05 on
 the page held here.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -32,7 +31,7 @@ from ocrjax_torch.models import db_int8 as tq
 from ocrjax_torch.models.crnn import BatchNorm
 from ocrjax_torch.models.db import DBDetector
 from test_torch_db import _random_state, _to_flax
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 from test_torch_fixture import jax_int8_fold
 from test_torch_slice import _page
 
@@ -269,7 +268,7 @@ def engines():
     cfg = asset_config(det_max_side=512, compute_dtype="float32",
                        det_int8=True)
     return (JaxEngine.from_pretrained(config=JaxConfig(
-        **dataclasses.asdict(cfg))),
+        **jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 
@@ -332,7 +331,7 @@ def test_int8_tiled_detection_matches_ocrjax(monkeypatch):
                        det_int8=True, tile_det_enable=False, tile_size=256,
                        tile_overlap=32, tile_max_candidates=64)
     jax_engine = JaxEngine.from_pretrained(config=JaxConfig(
-        **dataclasses.asdict(cfg)))
+        **jax_fields(cfg)))
     port = OcrEngine.from_pretrained(config=cfg, device="cpu")
     monkeypatch.setattr(tq, "fold_bn", _reference_fold(port.det_model))
     from ocrjax.train import synth

@@ -11,7 +11,6 @@ orientation classifier, and the fused lane's redo counts on the mixed
 batch at 512.
 """
 
-import dataclasses
 import io
 import json
 import logging
@@ -23,7 +22,8 @@ import torch
 
 from ocrjax.utils import logging as JL
 from ocrjax_torch.utils import logging as TL
-from test_torch_fixture import captured_logs, few_torch_threads  # noqa: F401
+from test_torch_fixture import (  # noqa: F401
+    captured_logs, few_torch_threads, jax_fields)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -113,7 +113,7 @@ def test_malformed_png_in_a_chunk_logs_as_ocrjax(tmp_path):
         ok = tpre.decode_chunk_to_gray([page, str(bad)], [0, 1], cfg)[3]
     with captured_logs("ocrjax.preprocess") as ref:
         jok = jpre.decode_chunk_to_gray(
-            [page, str(bad)], [0, 1], JaxConfig(**dataclasses.asdict(cfg)))[3]
+            [page, str(bad)], [0, 1], JaxConfig(**jax_fields(cfg)))[3]
     assert ok.tolist() == jok.tolist() == [True, False]
     _same(port, ref, values=False)
     assert port[0][:2] == ("WARNING", "page decode failed (isolated)")
@@ -241,7 +241,7 @@ def engines_512():
     cfg = asset_config(det_max_side=512, compute_dtype="float32",
                        tile_size=512, tile_overlap=64)
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

@@ -10,7 +10,6 @@ scalar tail.
 """
 
 import ctypes
-import dataclasses
 
 import numpy as np
 import pytest
@@ -21,6 +20,7 @@ from ocrjax.postprocess import native_boxes as jnb
 from ocrjax_torch import preprocess as P
 from ocrjax_torch.config import OcrConfig
 from ocrjax_torch.postprocess import native_boxes as NB
+from test_torch_fixture import jax_fields
 
 CFG = OcrConfig(det_max_side=256)
 
@@ -148,7 +148,7 @@ def _pages():
 @pytest.mark.parametrize("name", list(_pages()))
 def test_decode_canvas_native_equals_twin_and_ocrjax(name):
     img = _pages()[name]
-    jcfg = JaxConfig(**dataclasses.asdict(CFG))
+    jcfg = JaxConfig(**jax_fields(CFG))
     got = P.decode_canvas_native(img, CFG)
     twin = P.decode_canvas_luma_first(img, CFG)
     want = jpre.decode_canvas_native(img, jcfg)
@@ -172,7 +172,7 @@ def test_native_inverted_takes_the_lower_median():
     img[4, 0] = 130
     assert P.native_inverted(img) and not P.is_inverted(img)
     cfg = OcrConfig(det_max_side=8)
-    jcfg = JaxConfig(**dataclasses.asdict(cfg))
+    jcfg = JaxConfig(**jax_fields(cfg))
     got = P.decode_canvas_native(img, cfg)[0]
     np.testing.assert_array_equal(got, P.decode_canvas_luma_first(img, cfg)[0])
     np.testing.assert_array_equal(got, jpre.decode_canvas_native(img,
@@ -206,7 +206,7 @@ def test_pooled_chunk_decode_equals_serial_and_isolates_failures(
 
 def test_chunk_decode_equals_ocrjax_on_a_chunk():
     pages = list(_pages().values())
-    jcfg = JaxConfig(**dataclasses.asdict(CFG))
+    jcfg = JaxConfig(**jax_fields(CFG))
     got = P.decode_chunk_to_gray(pages, range(len(pages)), CFG,
                                  color_frac=0.05)
     want = jpre.decode_chunk_to_gray(pages, list(range(len(pages))), jcfg,

@@ -8,7 +8,6 @@ identical); lanes at the goldens bar (identical strings and order, boxes
 within 0.011 px, scores within 2e-3), strip confidences within 1e-5.
 """
 
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +22,7 @@ from ocrjax.train import synth
 from ocrjax_torch import fused as tfused
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.ops import warp as tw
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 from test_torch_slice import _assert_same, _page
 from test_torch_warp_staged import PAD, _page as _bar_pages, _quads, _t
 
@@ -77,7 +76,7 @@ def config():
 def _pair(config, **kw):
     cfg = config.replace(**kw)
     return (JaxEngine.from_pretrained(config=JaxConfig(
-        **dataclasses.asdict(cfg))),
+        **jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

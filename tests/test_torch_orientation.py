@@ -7,7 +7,6 @@ Bar: logits rtol 1e-4, the flip bit for bit, strings, order and flip
 decisions identical, box corners within 0.011 px, scores within 2e-3.
 """
 
-import dataclasses
 import os
 import sys
 
@@ -27,7 +26,7 @@ from ocrjax_torch import api_det
 from ocrjax_torch import weights as W
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.models import cls
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLS = os.path.join(ROOT, "assets", "cls.safetensors")
@@ -85,7 +84,7 @@ def engines():
     cfg = asset_config(det_max_side=512, compute_dtype="float32",
                        rec_try_flip=True)
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

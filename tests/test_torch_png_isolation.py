@@ -16,7 +16,6 @@ Module level: ocrjax_torch exports get_default_engine, detect, recognize
 and ocr on a default engine built lazily, as ocrjax does.
 """
 
-import dataclasses
 import os
 import struct
 import subprocess
@@ -33,7 +32,7 @@ from ocrjax.config import OcrConfig as JaxConfig
 from ocrjax_torch import api as port_api
 from ocrjax_torch import api_det, imageio
 from ocrjax_torch.api import OcrEngine, asset_config
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 from test_torch_slice import _page
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,7 +102,7 @@ def engines():
                        tile_size=512, tile_overlap=64,
                        tile_max_candidates=128)
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

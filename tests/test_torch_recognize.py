@@ -22,7 +22,7 @@ from ocrjax.train import synth
 from ocrjax_torch import preprocess as tpre
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.config import OcrConfig
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STRIP_SEEDS = [301, 302, 303, 304, 305, 306, 307, 308]
@@ -136,9 +136,8 @@ def test_small_host_and_device_helpers_match():
 @pytest.fixture(scope="module")
 def engines():
     cfg = asset_config(compute_dtype="float32")
-    import dataclasses
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 
@@ -172,9 +171,8 @@ def test_recognize_strips_beyond_the_largest_count_bucket(engines):
     batch, as in the reference."""
     jax_engine, _ = engines
     cfg = asset_config(compute_dtype="float32", line_batch_buckets=(2, 4))
-    import dataclasses
     small_j = JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg)))
+        config=JaxConfig(**jax_fields(cfg)))
     small_t = OcrEngine.from_pretrained(config=cfg, device="cpu")
     strips = _strips(jax_engine)[:5]
     assert [r.text for r in small_t.recognize_strips(strips)] == \
@@ -213,12 +211,11 @@ def test_beam_and_flip_stay_refused(engines):
     OcrEngine(config=port.config.replace(rec_try_flip=True), device="cpu")
     assert OcrEngine(config=port.config.replace(det_int8=True),
                      device="cpu").config.det_int8
-    import dataclasses
     cfg = port.config.replace(rec_dewarp_curl=True)
     got = OcrEngine.from_pretrained(config=cfg, device="cpu"
                                     ).recognize_strips(strips)
     want = JaxEngine.from_pretrained(config=JaxConfig(
-        **dataclasses.asdict(cfg))).recognize_strips(strips)
+        **jax_fields(cfg))).recognize_strips(strips)
     assert [r.text for r in got] == [r.text for r in want]
     np.testing.assert_allclose([r.confidence for r in got],
                                [r.confidence for r in want], atol=1e-5)

@@ -5,7 +5,6 @@ Bar (tests/test_goldens.py): identical strings in identical reading
 order, box corners within 0.011 px, scores within 2e-3.
 """
 
-import dataclasses
 import os
 
 import numpy as np
@@ -16,7 +15,7 @@ from ocrjax.charset import Charset
 from ocrjax.config import OcrConfig as JaxConfig
 from ocrjax.train import synth
 from ocrjax_torch.api import OcrEngine, asset_config
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEEDS = (101, 102, 103)
@@ -39,7 +38,7 @@ def config():
 @pytest.fixture(scope="module")
 def engines(config):
     jax_engine = JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(config)))
+        config=JaxConfig(**jax_fields(config)))
     return jax_engine, OcrEngine.from_pretrained(config=config, device="cpu")
 
 
@@ -106,7 +105,7 @@ def test_unported_options_raise(engines, config, pages):
         got = OcrEngine.from_pretrained(config=cfg, device="cpu").ocr(
             pages[2])
         want = JaxEngine.from_pretrained(config=JaxConfig(
-            **dataclasses.asdict(cfg))).ocr(pages[2])
+            **jax_fields(cfg))).ocr(pages[2])
         # strings, order and boxes (test_torch_int8.py holds the scores)
         assert [line.text for line in got.lines] == \
             [line.text for line in want.lines] != []

@@ -7,7 +7,6 @@ box corners within 0.011 px, scores within 2e-3; line confidences within
 2e-3 as well.
 """
 
-import dataclasses
 import os
 
 import numpy as np
@@ -20,7 +19,7 @@ from ocrjax.config import OcrConfig as JaxConfig
 from ocrjax.train import synth
 from ocrjax_torch import api_det, bucketing, fused
 from ocrjax_torch.api import OcrEngine, asset_config
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MIXED = ("straight", "tilted", "color", "dense", "bigtilt")
@@ -65,7 +64,7 @@ def pages():
 def engines():
     cfg = asset_config(det_max_side=512, compute_dtype="float32")
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

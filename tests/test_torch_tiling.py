@@ -14,7 +14,6 @@ refine, which reads the same string at confidence 0.8167 against 0.8328;
 fed the reference's boxes, the port's recognition gives its confidences.
 """
 
-import dataclasses
 import os
 import sys
 
@@ -31,7 +30,7 @@ from ocrjax.train import synth
 from ocrjax_torch import geometry, tiling
 from ocrjax_torch.api import OcrEngine, asset_config
 from ocrjax_torch.config import OcrConfig
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,7 +108,7 @@ def cfg():
 @pytest.fixture(scope="module")
 def engines(cfg):
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 
@@ -232,7 +231,7 @@ def test_ocr_tiled_batch_in_windows_matches_ocrjax(engines, cfg):
     tiling._dispatch_group = count("dispatch", dispatch)
     tiling._host_fallback_strips = count("fallback", fallback)
     port.config = cfg.replace(tile_pipeline_tiles=1)
-    jax_engine.config = JaxConfig(**dataclasses.asdict(port.config))
+    jax_engine.config = JaxConfig(**jax_fields(port.config))
     try:
         got = port.ocr_tiled_batch(pages)
         want = jax_engine.ocr_tiled_batch(pages)
@@ -240,7 +239,7 @@ def test_ocr_tiled_batch_in_windows_matches_ocrjax(engines, cfg):
         tiling._dispatch_group, tiling._host_fallback_strips = \
             dispatch, fallback
         port.config = cfg
-        jax_engine.config = JaxConfig(**dataclasses.asdict(cfg))
+        jax_engine.config = JaxConfig(**jax_fields(cfg))
     assert calls["fallback"] == 1 and calls["dispatch"] >= 5
     for g, w in zip(got, want):
         _assert_same(g, w, min_lines=1)

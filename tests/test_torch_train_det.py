@@ -19,7 +19,6 @@ Bars (the rec trainer's, tests/test_torch_train_rec.py):
     pixels: the u8 rounding of float strips).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +42,8 @@ from ocrjax_torch.config import TINY
 from ocrjax_torch.models.db import create_db
 from ocrjax_torch.train import det_crops, det_gt
 from ocrjax_torch.train import det_trainer as D
-from test_torch_fixture import few_torch_threads, one_rank_mesh  # noqa: F401
+from test_torch_fixture import (  # noqa: F401
+    few_torch_threads, jax_fields, one_rank_mesh)
 from test_torch_train_rec import LOSS_RTOL, compare_steps, flat_of
 
 NOISE_LEAVES = ("params/DBHead_0/ConvTranspose_0/bias",
@@ -173,7 +173,7 @@ def test_pool_targets_match_reduce_window():
 def engines():
     cfg = asset_config(det_max_side=512, compute_dtype="float32")
     return (JaxEngine.from_pretrained(
-        config=JaxConfig(**dataclasses.asdict(cfg))),
+        config=JaxConfig(**jax_fields(cfg))),
         OcrEngine.from_pretrained(config=cfg, device="cpu"))
 
 

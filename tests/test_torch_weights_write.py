@@ -12,7 +12,6 @@ ocrjax_torch/train/checkpoint.py).
     bit for bit; latest_checkpoint picks the highest step.
 """
 
-import dataclasses
 import json
 import os
 
@@ -39,7 +38,7 @@ from ocrjax_torch.models.db import create_db
 from ocrjax_torch.train import checkpoint as C
 from ocrjax_torch.train import rec_trainer as R
 from ocrjax_torch.train import synth
-from test_torch_fixture import few_torch_threads  # noqa: F401
+from test_torch_fixture import few_torch_threads, jax_fields  # noqa: F401
 from test_torch_slice import _page
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -120,7 +119,7 @@ def test_shipped_assets_written_back_load_in_both_packages(tmp_path):
     W.save_charset_sidecar(os.path.join(d, "rec.safetensors"), src.charset)
     port = OcrEngine.from_pretrained(d, config=cfg, device="cpu")
     jax_engine = JaxEngine.from_pretrained(
-        d, config=JaxConfig(**dataclasses.asdict(cfg)))
+        d, config=JaxConfig(**jax_fields(cfg)))
     assert port.cls_antisym == src.cls_antisym
     assert port.tile_det_arch == src.tile_det_arch
     page = _page(7)
